@@ -18,10 +18,21 @@ Phases, one line each:
   5. sibling -- symmetric sparse output at 12,288^2 against scipy;
   6. timing  -- device-resident multiply() and end-to-end
                 sparse_matrix_multiply at 10k, warm, min of 3, one profiled
-                call (device busy time), and the headline's time per stage.
+                call (device busy time), and the headline's time per stage;
+  7. bsr-kernels -- K5 and K6 against their plain versions at the BSR
+                path's shapes (8192^2, 128^2 blocks, 10% of them occupied):
+                both times, the largest difference, unvisited blocks zero;
+  8. bsr-main -- the BSR path: four requests through sparse_matrix_multiply
+                with block-sparse A, counts zeroed just before and read just
+                after: A x B (K6), symmetric (K6, K2), A x uniform B_u (K3,
+                K5) and dense output (K6).  Route "bsr", launches per
+                request, and each result against an f64 oracle on the card;
+  9. bsr-timing -- requests 1 and 3 end to end on the BSR route and, with
+                use_bsr=False, on the dense route, warm, min of 3; and
+                request 1's time per stage.
 
-Then a JSON line of the kernels, the nvidia-smi line, and last
-{"ok": true, "device": {...}}.  Any failed check exits non-zero; without a
+Then a JSON line of the kernels (launches summed over the two counted
+paths), the nvidia-smi line, and last {"ok": true, "device": {...}}.  Any failed check exits non-zero; without a
 CUDA device, or without the package beside it, it exits non-zero before any
 result is printed.
 """
@@ -40,13 +51,21 @@ from sparse_matrix_mult_tpu_torch import api
 from sparse_matrix_mult_tpu_torch.ops.convert import csr_to_dense
 from sparse_matrix_mult_tpu_torch.ops.dense_path import spgemm_dense_out
 from sparse_matrix_mult_tpu_torch.ops.kernels import LAUNCHES, _build, reset_launches
+from sparse_matrix_mult_tpu_torch.ops.kernels import bsr_spgemm as kb
 from sparse_matrix_mult_tpu_torch.ops.kernels import convert_kernels as ck
 from sparse_matrix_mult_tpu_torch.ops.kernels import triu_matmul as tm
+from sparse_matrix_mult_tpu_torch.types_bsr import _tobsr_padded
 from sparse_matrix_mult_tpu_torch.utils.native import expansion_size
-from sparse_matrix_mult_tpu_torch.utils.transfer import fetch_np
+from sparse_matrix_mult_tpu_torch.utils.transfer import (
+    fetch_dense_to_csr, fetch_np, fine_capacity)
 
 N, DENSITY = 10_000, 0.1  # the reference's headline configuration (bench.py)
 SIB_N, SIB_DENSITY = 12_288, 0.006  # dense route, ~36% dense product
+# BSR route: the block-structured operands of benchmarks/run.py:573-596
+# (8192^2, 128^2 blocks, 10% occupied, dense standard-normal blocks), and a
+# uniformly sparse B_u whose every block is occupied.
+BSR_N, BSR_BLOCK, BSR_OCC, BSR_SEEDS = 8192, 128, 0.10, (21, 22)
+BU_DENSITY, BU_SEED = 0.01, 23
 RTOL, ATOL = 1e-5, 1e-8  # the reference's oracle tolerance
 KERNEL_RUNS = 5
 PATH_RUNS = 3
@@ -62,13 +81,28 @@ KERNELS = {
                      "sparse_matrix_mult_tpu/ops/pallas/convert_kernels.py:231"),
     "dense_to_csr": ("K4 dense_to_csr", "sparse_matrix_mult_tpu_torch/csrc/convert.cu",
                      "sparse_matrix_mult_tpu/ops/pallas/convert_kernels.py:176"),
+    "bsr_matmul_dense": ("K5 bsr_matmul_dense", "sparse_matrix_mult_tpu_torch/csrc/bsr_spgemm.cu",
+                         "sparse_matrix_mult_tpu/ops/pallas/bsr_spgemm.py:50"),
+    "bsr_bsr_matmul_dense": ("K6 bsr_bsr_matmul_dense",
+                             "sparse_matrix_mult_tpu_torch/csrc/bsr_spgemm.cu",
+                             "sparse_matrix_mult_tpu/ops/pallas/bsr_spgemm.py:193"),
 }
+DENSE_PATH_KERNELS = ("matmul_triu", "dense_to_csr_triu", "csr_to_dense", "dense_to_csr")
 
 # The main path's requests: (label, operands, sparse_matrix_multiply keywords).
 MAIN_REQUESTS = (
     ("headline_symmetric_10k", "headline", dict(symmetric=True)),
     ("nonsymmetric_12288", "sibling", dict(symmetric=False)),
     ("dense_output_10k", "headline", dict(output_format="dense")),
+)
+
+# The BSR path's requests: (label, B operand, keywords, kernels it must launch).
+BSR_REQUESTS = (
+    ("bsr_x_bsr_8192", "b", dict(), ("bsr_bsr_matmul_dense",)),
+    ("bsr_x_bsr_symmetric_8192", "b", dict(symmetric=True),
+     ("bsr_bsr_matmul_dense", "dense_to_csr_triu")),
+    ("bsr_x_dense_8192", "bu", dict(), ("csr_to_dense", "bsr_matmul_dense")),
+    ("bsr_dense_output_8192", "b", dict(output_format="dense"), ("bsr_bsr_matmul_dense",)),
 )
 
 
@@ -124,6 +158,25 @@ def same_csr(got, ref, what: str) -> float:
     require(np.array_equal(got.indices, ref.indices), f"{what}: indices differ")
     require(np.allclose(got.data, ref.data, rtol=RTOL, atol=ATOL), f"{what}: values outside oracle")
     return float(np.abs(got.data - ref.data).max()) if got.nnz else 0.0
+
+
+def block_sparse(seed: int):
+    """BSR_N^2 scipy CSR with BSR_OCC of its BSR_BLOCK^2 blocks occupied, each
+    dense with standard-normal f32 values (benchmarks/run.py:579-596)."""
+    nb = BSR_N // BSR_BLOCK
+    r = np.random.default_rng(seed)
+    bi, bj = np.nonzero(r.random((nb, nb)) < BSR_OCC)
+    blocks = r.standard_normal((len(bi), BSR_BLOCK, BSR_BLOCK)).astype(np.float32)
+    shape3 = blocks.shape
+    rows = np.broadcast_to(bi[:, None, None] * BSR_BLOCK + np.arange(BSR_BLOCK)[None, :, None],
+                           shape3).ravel()
+    cols = np.broadcast_to(bj[:, None, None] * BSR_BLOCK + np.arange(BSR_BLOCK)[None, None, :],
+                           shape3).ravel()
+    return sp.coo_matrix((blocks.ravel(), (rows, cols)), shape=(BSR_N, BSR_N)).tocsr()
+
+
+def abs_bsr(m):
+    return smt.BSRMatrix(indptr=m.indptr, indices=m.indices, blocks=m.blocks.abs(), shape=m.shape)
 
 
 def csr_on_card(mat) -> torch.Tensor:
@@ -208,6 +261,115 @@ def stage_times(a_sp, b_sp) -> dict:
         best["fetch_full_triu_total"] - best["fetch_part_extract_k2"]
         - best["fetch_part_values_d2h_f64"])
     return best
+
+
+def bsr_stage_times(a_sp, b_sp):
+    """Host-clock seconds of each stage of the BSR route of
+    sparse_matrix_multiply(a_sp, b_sp) (request 1: K6, then the extraction
+    its byte rule picks), calling in order the functions the route calls;
+    min of PATH_RUNS + 1.  Returns the times and the extraction used."""
+    best = {}
+    bsz = smt.get_config().block_size
+
+    def timed(key, fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        best[key] = min(best.get(key, float("inf")), time.perf_counter() - t)
+        return out
+
+    def occupancies():
+        return api._bsr_route_ok(a_sp, DEVICE), api.block_occupancy(b_sp, bsz)
+
+    def plan():
+        bs_a, bs_b = _tobsr_padded(a_sp, bsz), _tobsr_padded(b_sp, bsz)
+        return bs_a, bs_b, kb.bsr_pair_plan(a_sp, b_sp, bsz, bs_a=bs_a, bs_b=bs_b)
+
+    def upload(bs_a, bs_b, p):
+        a = smt.bsr_from_scipy(a_sp, bsz, torch.float32, padded_bsr=bs_a, device=DEVICE)
+        b = smt.bsr_from_scipy(b_sp, bsz, torch.float32, padded_bsr=bs_b, device=DEVICE)
+        n = p["n_pairs"]
+        tables = [torch.from_numpy(p[k][:n]).to(DEVICE) for k in ("pa", "pb", "ci", "cj", "first")]
+        return a, b, tables, torch.from_numpy(p["mask"]).to(DEVICE)
+
+    for _ in range(PATH_RUNS + 1):
+        timed("occupancy_scans_a_b", occupancies)
+        bs_a, bs_b, p = timed("tobsr_a_b_and_pair_plan", plan)
+        a, b, tables, mask = timed("upload_blocks_and_plan", lambda: upload(bs_a, bs_b, p))
+        c = timed("product_k6", lambda: kb.bsr_bsr_matmul_dense(a, b, *tables, mask))
+        nnz = timed("count_nonzero_fetch", lambda: int(torch.count_nonzero(c)))
+        m, n = c.shape
+        if m * n * c.element_size() < (4 + c.element_size()) * fine_capacity(nnz):
+            extraction = "host packing"
+            timed("download_and_host_pack", lambda: fetch_dense_to_csr(c, nnz=nnz))
+        else:
+            extraction = "K4"
+            csr = timed("extract_k4", lambda: api._extract_csr(c, smt.bucket_capacity(nnz)))
+            timed("download_to_scipy", lambda: smt.to_scipy(csr))
+            del csr
+        del a, b, tables, mask, c
+    return best, extraction
+
+
+def bsr_kernels(a_sp, b_sp, bu_sp) -> dict:
+    """K6 (A x B over the pair plan) and K5 (A x densified B_u) against their
+    plain versions, at the BSR path's shapes."""
+    bsz = BSR_BLOCK
+    bs_a, bs_b = _tobsr_padded(a_sp, bsz), _tobsr_padded(b_sp, bsz)
+    a = smt.bsr_from_scipy(a_sp, bsz, torch.float32, padded_bsr=bs_a, device=DEVICE)
+    b = smt.bsr_from_scipy(b_sp, bsz, torch.float32, padded_bsr=bs_b, device=DEVICE)
+    plan = kb.bsr_pair_plan(a_sp, b_sp, bsz, bs_a=bs_a, bs_b=bs_b)
+    n = plan["n_pairs"]
+    tables = [torch.from_numpy(plan[k][:n]).to(DEVICE) for k in ("pa", "pb", "ci", "cj", "first")]
+    mask = torch.from_numpy(plan["mask"]).to(DEVICE)
+    abs_a = smt.bsr_to_dense(abs_bsr(a)).double()
+    out = {}
+
+    got = kb.bsr_bsr_matmul_dense(a, b, *tables, mask)
+    plain = kb.bsr_bsr_matmul_dense_plain(a, b, *tables, mask)
+    torch.cuda.synchronize()
+    bound = RTOL * (abs_a @ smt.bsr_to_dense(abs_bsr(b)).double())
+    err = (got.double() - plain.double()).abs()
+    require(not bool(torch.isnan(got).any()), "K6 output holds NaN")
+    require(bool((err <= bound).all()), "K6 outside 1e-5 of |A||B| against plain")
+    visited = mask.repeat_interleave(bsz, 0).repeat_interleave(bsz, 1)[: a.shape[0], : b.shape[1]]
+    require(bool((got[~visited] == 0).all()), "K6 wrote a block no pair visits")
+    out["bsr_bsr_matmul_dense"] = dict(
+        max_abs_err=float(err.max()),
+        ms=event_ms(lambda: kb.bsr_bsr_matmul_dense(a, b, *tables, mask)),
+        plain_ms=event_ms(lambda: kb.bsr_bsr_matmul_dense_plain(a, b, *tables, mask)),
+        n_pairs=n, n_a_blocks=plan["n_a_blocks"], visited_blocks=int(plan["mask"].sum()),
+        unvisited_zero=True)
+    del got, plain, bound, err, visited
+
+    bu = smt.from_scipy(bu_sp, dtype=torch.float32, device=DEVICE)
+    bud = ck.csr_to_dense(bu.indptr, bu.indices, bu.values, bu.shape)
+    got = kb.bsr_matmul_dense(a, bud)
+    plain = kb.bsr_matmul_dense_plain(a, bud)
+    torch.cuda.synchronize()
+    bound = RTOL * (abs_a @ bud.abs().double())
+    err = (got.double() - plain.double()).abs()
+    require(bool((err <= bound).all()), "K5 outside 1e-5 of |A||B| against plain")
+    empty = (a.indptr[1:] == a.indptr[:-1]).repeat_interleave(bsz)[: a.shape[0]]
+    require(bool((got[empty] == 0).all()), "K5 left a row of an empty block-row non-zero")
+    out["bsr_matmul_dense"] = dict(
+        max_abs_err=float(err.max()),
+        ms=event_ms(lambda: kb.bsr_matmul_dense(a, bud)),
+        plain_ms=event_ms(lambda: kb.bsr_matmul_dense_plain(a, bud)),
+        n_a_blocks=int(a.nblocks), empty_block_rows=int(empty.sum()) // bsz)
+    return out
+
+
+def check_bsr_result(label, got, oracle, bound) -> float:
+    """A BSR-path result against the f64 oracle on the card: the same
+    nonzero structure, values within 1e-5 * (|A| @ |B|); returns max |diff|."""
+    got = torch.from_numpy(got).to(DEVICE) if isinstance(got, np.ndarray) else csr_on_card(got)
+    require(tuple(got.shape) == tuple(oracle.shape), f"{label}: shape {tuple(got.shape)}")
+    require(torch.equal(got != 0, oracle != 0), f"{label}: structure differs from the oracle")
+    diff = (got - oracle).abs()
+    require(bool((diff <= bound).all()), f"{label}: outside 1e-5 of |A||B| of the f64 oracle")
+    return float(diff.max())
 
 
 def main() -> int:
@@ -318,8 +480,10 @@ def main() -> int:
 
     for label, route in routes.items():
         require(route == "dense", f"{label}: route {route!r} != 'dense'")
-    for key, (kname, _, _) in KERNELS.items():
-        require(launches_main[key] > 0, f"the main path launched no {kname}")
+    for key in DENSE_PATH_KERNELS:
+        require(launches_main[key] > 0, f"the main path launched no {KERNELS[key][0]}")
+    require(launches_main["bsr_matmul_dense"] == launches_main["bsr_bsr_matmul_dense"] == 0,
+            "the dense main path launched a BSR kernel")
     for key in ("matmul_triu", "dense_to_csr_triu", "csr_to_dense"):
         require(per_request["headline_symmetric_10k"][key] > 0,
                 f"the headline request launched no {KERNELS[key][0]}")
@@ -386,13 +550,95 @@ def main() -> int:
           f"{PATH_RUNS + 1}: " + json.dumps(stages),
           flush=True)
 
+    del a, b
+
+    # 7. BSR kernels against their plain versions, at the BSR path's shapes
+    t0 = time.perf_counter()
+    a_bsp, b_bsp = (block_sparse(s) for s in BSR_SEEDS)
+    bu_sp = sp.random(BSR_N, BSR_N, density=BU_DENSITY, format="csr", random_state=BU_SEED)
+    bsr_report = bsr_kernels(a_bsp, b_bsp, bu_sp)
+    report.update(bsr_report)
+    k5, k6 = bsr_report["bsr_matmul_dense"], bsr_report["bsr_bsr_matmul_dense"]
+    phase("bsr-kernels", t0, f"{BSR_N}^2, {BSR_BLOCK}^2 blocks: K6 {k6['ms']:.3f} ms (plain "
+          f"{k6['plain_ms']:.3f}; {k6['n_pairs']} pairs, {k6['visited_blocks']} of "
+          f"{(BSR_N // BSR_BLOCK) ** 2} output blocks visited, the rest exactly 0; max abs err "
+          f"{k6['max_abs_err']:.2e}) | K5 {k5['ms']:.3f} ms (plain {k5['plain_ms']:.3f}; "
+          f"{k5['n_a_blocks']} A blocks, {k5['empty_block_rows']} empty block-rows; max abs err "
+          f"{k5['max_abs_err']:.2e})")
+
+    # 8. BSR path: the requests through the public entry point, counted
+    t0 = time.perf_counter()
+    bsr_b = {"b": b_bsp, "bu": bu_sp}
+    bsr_results, bsr_routes, bsr_seconds, bsr_per_request = {}, {}, {}, {}
+    reset_launches()
+    for label, which, kw, _ in BSR_REQUESTS:
+        before = dict(LAUNCHES)
+        t = time.perf_counter()
+        bsr_results[label] = smt.sparse_matrix_multiply(a_bsp, bsr_b[which], **kw)
+        torch.cuda.synchronize()
+        bsr_seconds[label] = time.perf_counter() - t
+        bsr_routes[label] = smt.get_last_route()
+        bsr_per_request[label] = {k: LAUNCHES[k] - before[k] for k in KERNELS}
+    launches_bsr = dict(LAUNCHES)
+
+    for label, _, _, expected in BSR_REQUESTS:
+        require(bsr_routes[label] == "bsr", f"{label}: route {bsr_routes[label]!r} != 'bsr'")
+        for key in expected:
+            require(bsr_per_request[label][key] > 0, f"{label} launched no {KERNELS[key][0]}")
+    extraction = ("K4" if bsr_per_request["bsr_x_bsr_8192"]["dense_to_csr"] > 0
+                  else "host packing")
+
+    a64 = csr_on_card(a_bsp)
+    errs = {}
+    for which in ("b", "bu"):
+        b64 = csr_on_card(bsr_b[which])
+        oracle = torch.matmul(a64, b64)
+        bound = RTOL * torch.matmul(a64.abs(), b64.abs())
+        del b64
+        for label, w, kw, _ in BSR_REQUESTS:
+            if w != which:
+                continue
+            sym = kw.get("symmetric", False)
+            errs[label] = check_bsr_result(label, bsr_results.pop(label),
+                                           torch.triu(oracle) if sym else oracle,
+                                           torch.triu(bound) if sym else bound)
+        del oracle, bound
+    del a64
+    phase("bsr-main", t0, " | ".join(
+        [f"{label}: {errs[label]:.2e} max abs err vs f64 oracle, {bsr_seconds[label]:.3f} s"
+         for label, _, _, _ in BSR_REQUESTS]
+        + [f"bsr_x_bsr_8192 extracted by {extraction}", f"routes {bsr_routes}",
+           f"launches by request {bsr_per_request}", f"launches {launches_bsr}"]))
+
+    # 9. BSR route against the dense route end to end, and request 1's stages
+    t0 = time.perf_counter()
+    e2e = {}
+    for label, which in (("bsr_x_bsr_8192", "b"), ("bsr_x_dense_8192", "bu")):
+        e2e[label] = {"bsr": wall_s(lambda: smt.sparse_matrix_multiply(a_bsp, bsr_b[which]))}
+        require(smt.get_last_route() == "bsr", f"{label}: timed call took another route")
+        saved = smt.get_config()
+        smt.set_config(use_bsr=False)
+        try:
+            e2e[label]["dense"] = wall_s(lambda: smt.sparse_matrix_multiply(a_bsp, bsr_b[which]))
+            require(smt.get_last_route() == "dense", f"{label}: use_bsr=False did not go dense")
+        finally:
+            smt.set_config(saved)
+    bsr_stages, stage_extraction = bsr_stage_times(a_bsp, b_bsp)
+    phase("bsr-timing", t0, f"{name} [{smi}]: sparse_matrix_multiply end to end, host clock, "
+          f"min of {PATH_RUNS}: " + " | ".join(
+              f"{label} BSR route {t['bsr']:.4f} s, dense route (use_bsr=False) {t['dense']:.4f} s"
+              for label, t in e2e.items()))
+    print(f"[bsr-stages] bsr_x_bsr_8192 sparse_matrix_multiply ({stage_extraction} extraction), "
+          f"host clock, min of {PATH_RUNS + 1}: " + json.dumps(bsr_stages), flush=True)
+
     kernels = []
+    by_request = {**per_request, **bsr_per_request}
     for key, (kname, source, replaces) in KERNELS.items():
         r = report[key]
         kernels.append({
             "name": kname, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches_main[key],
-            "launches_by_request": {label: n[key] for label, n in per_request.items()},
+            "launches": launches_main[key] + launches_bsr[key],
+            "launches_by_request": {label: n[key] for label, n in by_request.items()},
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
         })
     print(json.dumps({"kernels": kernels}))

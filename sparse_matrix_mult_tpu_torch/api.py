@@ -3,11 +3,11 @@ device-resident ``multiply``.
 
 Counterpart of :mod:`sparse_matrix_mult_tpu.api`, for the slice the port
 carries so far: validation, the empty-operand path, the host short-circuit
-(native Gustavson below ``Config.host_compute_limit`` partial products) and
-the dense route with device or host extraction.  Every other rung of the
-JAX router raises :class:`NotImplementedError` naming its ``ROADMAP.md``
-item, rather than sending the problem down the dense route under another
-structure contract.
+(native Gustavson below ``Config.host_compute_limit`` partial products), the
+dense route with device or host extraction, and its BSR rung for
+block-sparse operands (K5/K6).  Every other rung of the JAX router raises
+:class:`NotImplementedError` naming its ``ROADMAP.md`` item, rather than
+sending the problem down the dense route under another structure contract.
 
 The scipy-in/scipy-out entry point computes on ``device`` (default
 ``Config.device``, ``"cuda"``); it never probes for a GPU.
@@ -23,23 +23,21 @@ import torch
 from scipy.sparse import csr_matrix, isspmatrix_csr
 
 from .config import Precision, get_config
-from .ops.convert import dense_to_csr, dense_to_csr_triu
+from .ops.convert import csr_to_dense, dense_to_csr, dense_to_csr_triu
 from .ops.dense_path import dense_path_fits, spgemm_dense_out
+from .ops.kernels.bsr_spgemm import (
+    KERNEL_BLOCK, bsr_bsr_matmul_dense, bsr_matmul_dense, bsr_pair_plan)
 from .ops.matmul import resolve_precision
 from .types import CSRMatrix, bucket_capacity, from_scipy, to_scipy
+from .types_bsr import _tobsr_padded, bsr_from_scipy
 from .utils.native import expansion_size, spgemm_host
 from .utils.transfer import fetch_dense_to_csr, fetch_np, fine_capacity
 
-__all__ = ["sparse_matrix_multiply", "multiply", "get_last_route"]
+__all__ = ["sparse_matrix_multiply", "multiply", "get_last_route", "block_occupancy"]
 
-# Route of the last sparse_matrix_multiply on this thread: "dense", "host"
-# or "empty".
+# Route of the last sparse_matrix_multiply on this thread: "dense", "bsr",
+# "host" or "empty".
 _ROUTE_STATE = threading.local()
-
-# Block-sparse operands the JAX package would send to its BSR kernels
-# (block edge and occupancy cutoff of its Config).
-_BSR_BLOCK = 128
-_BSR_OCCUPANCY_CUTOFF = 0.25
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -79,22 +77,72 @@ def _upload_dtype(a_sp, b_sp, device):
     return None, prec
 
 
-def _bsr_route_ok(a_sp, device) -> bool:
-    """Whether the JAX router would take its BSR route on an accelerator:
-    at least 2x2 blocks and at most a quarter of them occupied."""
-    if torch.device(device).type != "cuda":
-        return False
-    m, k = a_sp.shape
-    if m < 2 * _BSR_BLOCK or k < 2 * _BSR_BLOCK or a_sp.nnz == 0:
-        return False
-    nbr, nbc = -(-m // _BSR_BLOCK), -(-k // _BSR_BLOCK)
-    # One O(nnz) pass without a sort: block key of every entry, then a count
-    # per block (np.unique costs 2.6x as much at 1e7 entries).
-    block_starts = a_sp.indptr[np.minimum(np.arange(nbr + 1) * _BSR_BLOCK, m)]
+def block_occupancy(mat, block_size: int) -> float:
+    """Fraction of occupied (block_size x block_size) blocks of a scipy
+    sparse matrix, in one O(nnz) pass without a sort: the block key of every
+    entry, then a count per block (np.unique costs 2.6x as much at 1e7
+    entries).  Nothing is cached, so an in-place edit of the pattern is
+    always seen."""
+    if not isspmatrix_csr(mat):
+        mat = csr_matrix(mat)
+    b = int(block_size)
+    m, n = mat.shape
+    nbr, nbc = -(-m // b), -(-n // b)
+    if mat.nnz == 0:
+        return 0.0
+    block_starts = mat.indptr[np.minimum(np.arange(nbr + 1) * b, m)]
     block_row = np.repeat(np.arange(nbr, dtype=np.int64), np.diff(block_starts))
-    keys = block_row * nbc + a_sp.indices // _BSR_BLOCK
-    occupied = np.count_nonzero(np.bincount(keys, minlength=nbr * nbc))
-    return occupied <= _BSR_OCCUPANCY_CUTOFF * nbr * nbc
+    keys = block_row * nbc + mat.indices[: mat.indptr[-1]] // b
+    return np.count_nonzero(np.bincount(keys, minlength=nbr * nbc)) / (nbr * nbc)
+
+
+def _bsr_route_ok(a_sp, device) -> bool:
+    """Whether A goes down the BSR route: on CUDA, with the block size the
+    kernels take, at least 2x2 blocks and at most ``bsr_occupancy_cutoff``
+    of them occupied; always with ``force_bsr``; never with ``use_bsr`` off."""
+    cfg = get_config()
+    if not cfg.use_bsr:
+        return False
+    if cfg.force_bsr:
+        return True
+    if torch.device(device).type != "cuda" or cfg.block_size != KERNEL_BLOCK:
+        return False
+    b = cfg.block_size
+    m, k = a_sp.shape
+    if m < 2 * b or k < 2 * b:
+        return False  # fewer than 2x2 blocks: nothing to skip
+    return block_occupancy(a_sp, b) <= cfg.bsr_occupancy_cutoff
+
+
+def _bsr_product_host(a_sp, b_sp, symmetric: bool, device) -> torch.Tensor:
+    """Dense product of a block-sparse A on ``device``, float32 on every
+    device as in the JAX route: K6 (BSR x BSR over the planned block pairs)
+    when B is block-sparse too and the plan does less than 0.9 of K5's tile
+    products, else K3 densifies B and K5 multiplies (BSR x dense).
+
+    Each operand is converted by ``_tobsr_padded`` once; the container and
+    the pair planner share the result, so their block slots line up.
+    """
+    cfg = get_config()
+    bsz = cfg.block_size
+    bs_a = _tobsr_padded(a_sp, bsz)
+    a_bsr = bsr_from_scipy(a_sp, bsz, torch.float32, padded_bsr=bs_a, device=device)
+    c = None
+    if block_occupancy(b_sp, bsz) <= cfg.bsr_occupancy_cutoff:
+        bs_b = _tobsr_padded(b_sp, bsz)
+        plan = bsr_pair_plan(a_sp, b_sp, bsz, bs_a=bs_a, bs_b=bs_b)
+        nbc = -(-b_sp.shape[1] // bsz)
+        if plan is not None and plan["n_pairs"] < 0.9 * plan["n_a_blocks"] * nbc:
+            b_bsr = bsr_from_scipy(b_sp, bsz, torch.float32, padded_bsr=bs_b, device=device)
+            n = plan["n_pairs"]  # the real pairs only: no padding crosses
+            tables = [torch.from_numpy(plan[key][:n]).to(device)
+                      for key in ("pa", "pb", "ci", "cj", "first")]
+            mask = torch.from_numpy(plan["mask"]).to(device)
+            c = bsr_bsr_matmul_dense(a_bsr, b_bsr, *tables, mask)
+    if c is None:
+        b = from_scipy(b_sp, dtype=torch.float32, device=device)
+        c = bsr_matmul_dense(a_bsr, csr_to_dense(b))
+    return torch.triu(c) if symmetric else c
 
 
 def _extract_csr(c: torch.Tensor, out_capacity: int, symmetric: bool = False) -> CSRMatrix:
@@ -104,7 +152,8 @@ def _extract_csr(c: torch.Tensor, out_capacity: int, symmetric: bool = False) ->
 
 
 def _dense_to_scipy_csr(a_sp, b_sp, symmetric: bool, device):
-    """Single-shot dense route: product on ``device``, then extraction.
+    """Single-shot dense route: product on ``device`` (the BSR kernels for a
+    block-sparse A, :func:`_bsr_product_host`), then extraction.
 
     * small outputs (<= ``host_extract_limit`` elements): download the
       panel and pack it with scipy;
@@ -116,13 +165,14 @@ def _dense_to_scipy_csr(a_sp, b_sp, symmetric: bool, device):
     m = a_sp.shape[0]
     n = b_sp.shape[1]
     if _bsr_route_ok(a_sp, device):
-        raise _not_ported("The BSR route (block-sparse operands)", "Queue 1 item 8")
-    dtype, _ = _upload_dtype(a_sp, b_sp, device)
-    a = from_scipy(a_sp, dtype=dtype, device=device)
-    b = from_scipy(b_sp, dtype=dtype, device=device)
-    _set_route("dense")
-
-    c = spgemm_dense_out(a, b, symmetric=symmetric)
+        c = _bsr_product_host(a_sp, b_sp, symmetric, device)
+        _set_route("bsr")
+    else:
+        dtype, _ = _upload_dtype(a_sp, b_sp, device)
+        a = from_scipy(a_sp, dtype=dtype, device=device)
+        b = from_scipy(b_sp, dtype=dtype, device=device)
+        c = spgemm_dense_out(a, b, symmetric=symmetric)
+        _set_route("dense")
     if m * n <= get_config().host_extract_limit:
         return csr_matrix(fetch_np(c).astype(np.float64))
 
@@ -167,8 +217,9 @@ def _fetch_full_triu(c: torch.Tensor, nnz: int):
 def _sparse_out_host(a_sp, b_sp, symmetric: bool, esc_limit: int, device):
     """sparse x sparse -> scipy CSR: the JAX strategy ladder, first match wins.
 
-    0. few partial products       -> native host Gustavson
-    1. everything fits densely    -> dense route (unless ESC would win)
+    0. few partial products       -> native host Gustavson (unless force_bsr)
+    1. everything fits densely    -> dense route (unless ESC would win),
+                                     BSR kernels for a block-sparse A
     2. ESC engines, row chunks    -> not ported yet (raise)
     """
     m, k = a_sp.shape
@@ -176,7 +227,7 @@ def _sparse_out_host(a_sp, b_sp, symmetric: bool, esc_limit: int, device):
     cfg = get_config()
     expand = expansion_size(a_sp.indices, a_sp.nnz, b_sp.indptr)
     keep = cfg.keep_structure
-    if expand <= cfg.host_compute_limit:
+    if expand <= cfg.host_compute_limit and not cfg.force_bsr:
         out = spgemm_host(a_sp, b_sp, symmetric, n_partials=expand, keep_structure=keep)
         _set_route("host")
         return out
@@ -268,11 +319,13 @@ def sparse_matrix_multiply(
     elif output_format == "dense":
         cfg = get_config()
         expand = expansion_size(matrix_a.indices, matrix_a.nnz, matrix_b.indptr)
-        if expand <= cfg.host_compute_limit:
+        if expand <= cfg.host_compute_limit and not cfg.force_bsr:
             result = spgemm_host(matrix_a, matrix_b, symmetric, n_partials=expand).toarray()
             _set_route("host")
         elif _bsr_route_ok(matrix_a, device):
-            raise _not_ported("The BSR route (block-sparse operands)", "Queue 1 item 8")
+            c = _bsr_product_host(matrix_a, matrix_b, symmetric, device)
+            result = fetch_np(c).astype(np.float64)
+            _set_route("bsr")
         else:
             dtype, _ = _upload_dtype(matrix_a, matrix_b, device)
             a = from_scipy(matrix_a, dtype=dtype, device=device)

@@ -7,7 +7,8 @@ reads.  Two differences:
 * ``device`` names where the scipy-in/scipy-out entry point computes.  It is
   never probed: with the default ``"cuda"`` and no GPU, torch raises.
 * There are no per-kernel switches.  A CUDA tensor runs the hand-written
-  kernel; a CPU tensor runs the kernel's plain PyTorch version.
+  kernel; a CPU tensor runs the kernel's plain PyTorch version.  The one
+  force switch, ``force_bsr``, is the counterpart of ``force_pallas_bsr``.
 """
 
 from __future__ import annotations
@@ -54,6 +55,17 @@ class Config:
     esc_expand_limit: int = 1 << 22
     use_binned_esc: bool = True
     binned_expand_limit: int = 1 << 25
+    # BSR route: block edge of the BSR kernels (K5, K6), and block-sparse
+    # operands -- at most this fraction of A's (block_size x block_size)
+    # blocks occupied -- go through them on CUDA.  The CUDA kernels take 128
+    # only: with another block size CUDA requests keep the dense route, and
+    # only ``force_bsr`` (the plain versions on the CPU) uses it.
+    block_size: int = 128
+    use_bsr: bool = True
+    bsr_occupancy_cutoff: float = 0.25
+    # Take the BSR route whatever the device and size (the CPU tests run the
+    # kernels' plain versions through it).
+    force_bsr: bool = False
     # Route only to Gustavson-structure strategies (keeps exact-zero entries).
     keep_structure: bool = False
     # Print the reference's "Multiplication resulted in a zero matrix." notice.

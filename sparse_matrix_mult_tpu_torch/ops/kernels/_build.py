@@ -1,9 +1,10 @@
 """Build the hand-written CUDA kernels at first use and bind them with ctypes.
 
-``csrc/*.cu`` compile with ``nvcc`` for ``sm_90a`` into one shared library
-with a plain C interface.  The library sits in ``build/smm_torch_kernels/``
-next to the package and is named by a hash of the sources and flags, so an
-edited source builds anew and an unchanged one loads in milliseconds.
+``csrc/*.cu`` compile with ``nvcc`` for ``sm_90a``, one ``nvcc`` per source,
+all started together, and link into one shared library with a plain C
+interface.  The library sits in ``build/smm_torch_kernels/`` next to the
+package and is named by a hash of the sources and flags, so an edited source
+builds anew and an unchanged one loads in milliseconds.
 
 Every C entry point takes device pointers and PyTorch's current stream as
 ``c_void_p`` and returns ``cudaGetLastError()``; :func:`check` raises on a
@@ -30,11 +31,14 @@ SRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "smm_torch_kernels")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 ]
 
 # Kernel launches per wrapper; each CUDA wrapper adds one where it launches.
-LAUNCHES = {"matmul_triu": 0, "csr_to_dense": 0, "dense_to_csr": 0, "dense_to_csr_triu": 0}
+LAUNCHES = {
+    "matmul_triu": 0, "csr_to_dense": 0, "dense_to_csr": 0, "dense_to_csr_triu": 0,
+    "bsr_matmul_dense": 0, "bsr_bsr_matmul_dense": 0,
+}
 
 _LIB: ctypes.CDLL | None = None
 _LOCK = threading.Lock()
@@ -50,6 +54,8 @@ _SIGNATURES = {
     "smm_dense_count_f64": [_P, _I64, _I64, _INT, _P, _P],
     "smm_dense_fill_f32": [_P, _I64, _I64, _INT, _P, _I64, _P, _P, _P],
     "smm_dense_fill_f64": [_P, _I64, _I64, _INT, _P, _I64, _P, _P, _P],
+    "smm_bsr_matmul_dense_f32": [_P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _P],
+    "smm_bsr_bsr_matmul_dense_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _P],
 }
 
 
@@ -80,6 +86,26 @@ def library_path() -> str:
     return os.path.join(BUILD_DIR, f"libsmm_torch_kernels_{digest.hexdigest()[:16]}.so")
 
 
+def _run_all(cmds: list[list[str]]) -> list[str]:
+    """Run the commands concurrently; their stderr, in order.  Raises on the
+    first failure, after stopping the others."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for cmd in cmds]
+    try:
+        errs = []
+        for cmd, proc in zip(cmds, procs):
+            _, err = proc.communicate()
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{err}")
+            errs.append(err)
+        return errs
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
 def build(verbose: bool = False) -> str:
     """Compile the sources unless the library for their hash exists; returns
     its path.  ``verbose`` adds ``-Xptxas -v`` and prints the compiler's
@@ -88,19 +114,18 @@ def build(verbose: bool = False) -> str:
     if os.path.exists(path) and not verbose:
         return path
     os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []), "-o", tmp, *_sources()]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stderr}")
+    nvcc = _nvcc()
+    ptxas = ["-Xptxas", "-v"] if verbose else []
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        srcs = _sources()
+        objs = [os.path.join(tmp, os.path.basename(src) + ".o") for src in srcs]
+        errs = _run_all([[nvcc, *NVCC_FLAGS, *ptxas, "-c", "-o", obj, src]
+                         for src, obj in zip(srcs, objs)])
+        lib = os.path.join(tmp, "lib.so")
+        errs += _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", lib, *objs]])
         if verbose:
-            print(proc.stderr, end="")
-        os.replace(tmp, path)  # atomic: a concurrent loader sees all or nothing
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+            print("".join(errs), end="")
+        os.replace(lib, path)  # atomic: a concurrent loader sees all or nothing
     return path
 
 

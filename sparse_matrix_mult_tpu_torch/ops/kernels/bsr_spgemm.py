@@ -1,0 +1,204 @@
+"""BSR products (``csrc/bsr_spgemm.cu``), their plain versions, and the
+host pair planner.
+
+* K5 :func:`bsr_matmul_dense` -- BSR A x dense B -> dense; replaces
+  ``sparse_matrix_mult_tpu/ops/pallas/bsr_spgemm.py::_kernel``.
+* K6 :func:`bsr_bsr_matmul_dense` -- BSR A x BSR B -> dense over the block
+  pairs :func:`bsr_pair_plan` lists; replaces ``bsr_spgemm.py::_kernel_bb``.
+
+Zero blocks are skipped: no load, no multiply.  Both CUDA kernels take
+float32 and 128x128 blocks only; the plain versions take any block size and
+float dtype, and run their f32 products in full FP32 (never TF32).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ...types import bucket_capacity
+from ...types_bsr import BSRMatrix, _tobsr_padded, bsr_to_dense
+from ..matmul import full_fp32
+from . import _build
+
+__all__ = [
+    "bsr_pair_plan",
+    "bsr_matmul_dense",
+    "bsr_matmul_dense_plain",
+    "bsr_bsr_matmul_dense",
+    "bsr_bsr_matmul_dense_plain",
+]
+
+KERNEL_BLOCK = 128  # the only block edge the CUDA kernels take
+
+
+def bsr_pair_plan(a_sp, b_sp, block_size: int, bs_a=None, bs_b=None):
+    """Host-side block-pair schedule for :func:`bsr_bsr_matmul_dense`.
+
+    Walks the two scipy operands' block patterns (the same
+    :func:`_tobsr_padded` results as the containers, so slot ids line up;
+    pass ``bs_a``/``bs_b`` to share them) and returns, sorted by output block
+    (ci, cj), a dict with ``pa``/``pb`` (A/B block slots per pair),
+    ``ci``/``cj`` (output block coordinates), ``first`` (run-start flags),
+    ``mask`` (the (nbr, nbc) visited-block mask), ``n_pairs`` and
+    ``n_a_blocks``.  The pair tables are padded to a power of two as in the
+    JAX planner (padding pairs point at the dummy block-row ``nbr``).
+    Returns ``None`` for an empty product.
+    """
+    if bs_a is None:
+        bs_a = _tobsr_padded(a_sp, block_size)
+    if bs_b is None:
+        bs_b = _tobsr_padded(b_sp, block_size)
+    na = int(bs_a.indptr[-1])
+    nbr = len(bs_a.indptr) - 1
+    nbc = -(-b_sp.shape[1] // block_size)
+    if na == 0 or int(bs_b.indptr[-1]) == 0:
+        return None
+    rows_a = np.repeat(np.arange(nbr, dtype=np.int64), np.diff(bs_a.indptr))  # block-row per A slot
+    kk = bs_a.indices[:na].astype(np.int64)  # contraction block per A slot
+    lens = np.diff(bs_b.indptr)[kk]
+    ends = np.cumsum(lens)
+    starts = ends - lens
+    n_pairs = int(ends[-1])
+    if n_pairs == 0:
+        return None
+    ta = np.repeat(np.arange(na, dtype=np.int64), lens)
+    off = np.arange(n_pairs, dtype=np.int64) - np.repeat(starts, lens)
+    tb = bs_b.indptr[kk[ta]].astype(np.int64) + off
+    ci = rows_a[ta]
+    cj = bs_b.indices[tb].astype(np.int64)
+    order = np.lexsort((cj, ci))  # stable: runs grouped by output block
+    pa, pb, ci, cj = ta[order], tb[order], ci[order], cj[order]
+    first = np.ones(n_pairs, np.int32)
+    first[1:] = ((ci[1:] != ci[:-1]) | (cj[1:] != cj[:-1])).astype(np.int32)
+    mask = np.zeros((nbr, nbc), bool)
+    mask[ci, cj] = True
+    pad = bucket_capacity(n_pairs, minimum=1) - n_pairs
+
+    def padded(x, fill):
+        return np.concatenate([x.astype(np.int32), np.full(pad, fill, np.int32)])
+
+    return dict(
+        pa=padded(pa, 0),
+        pb=padded(pb, 0),
+        ci=padded(ci, nbr),  # padding accumulates into the dummy block-row
+        cj=padded(cj, 0),
+        first=padded(first, 1),
+        mask=mask,
+        n_pairs=n_pairs,
+        n_a_blocks=na,
+    )
+
+
+def _check_kernel_operands(name: str, block_size: int, *tensors: torch.Tensor) -> None:
+    if block_size != KERNEL_BLOCK:
+        raise ValueError(f"the CUDA {name} kernel takes {KERNEL_BLOCK}x{KERNEL_BLOCK} blocks, "
+                         f"got {block_size}")
+    if any(t.dtype != torch.float32 for t in tensors):
+        raise TypeError(f"the CUDA {name} kernel takes float32 operands")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name} takes contiguous operands")
+
+
+def bsr_matmul_dense_plain(a: BSRMatrix, b_dense: torch.Tensor) -> torch.Tensor:
+    """K5's plain version: ``bsr_to_dense(a) @ b_dense[:cols]``."""
+    with full_fp32():
+        return torch.matmul(bsr_to_dense(a), b_dense[: a.shape[1]])
+
+
+def bsr_matmul_dense(a: BSRMatrix, b_dense: torch.Tensor) -> torch.Tensor:
+    """``A_bsr @ B_dense -> dense`` with A's zero blocks skipped (K5).
+
+    ``b_dense`` is (K, N) with K >= a.shape[1]; its rows past a.shape[1] are
+    not read.  The result is (a.shape[0], N); block-rows of A with no stored
+    block give zero rows.  Only the first ``block_capacity`` block slots are
+    read, also where ``indptr`` counts more blocks (:func:`bsr_from_dense`).
+    """
+    if b_dense.ndim != 2 or b_dense.shape[0] < a.shape[1]:
+        raise ValueError(
+            f"b_dense must be (K, N) with K >= {a.shape[1]}, got {tuple(b_dense.shape)}")
+    if not _build.is_cuda(a.indptr, a.indices, a.blocks, b_dense):
+        return bsr_matmul_dense_plain(a, b_dense)
+    _check_kernel_operands("bsr_matmul_dense", a.block_size, a.blocks, b_dense)
+    (m, k), n = a.shape, int(b_dense.shape[1])
+    if max(m, n, b_dense.shape[0]) >= 2**31:
+        raise ValueError("bsr_matmul_dense: dimensions must fit in int32")
+    c = torch.empty((m, n), dtype=torch.float32, device=b_dense.device)
+    if m == 0 or n == 0:
+        return c
+    code = _build.load().smm_bsr_matmul_dense_f32(
+        a.indptr.data_ptr(), a.indices.data_ptr(), a.blocks.data_ptr(), b_dense.data_ptr(),
+        c.data_ptr(), a.nbr, a.block_capacity, m, k, n, _build.stream_ptr(b_dense.device),
+    )
+    _build.LAUNCHES["bsr_matmul_dense"] += 1
+    _build.check(code, "bsr_matmul_dense")
+    return c
+
+
+def _check_plan(a: BSRMatrix, b: BSRMatrix, tables, mask) -> None:
+    if a.block_size != b.block_size:
+        raise ValueError(f"block sizes differ: {a.block_size} and {b.block_size}")
+    if a.shape[1] != b.shape[0]:
+        raise ValueError(f"inner dimensions differ: {a.shape} and {b.shape}")
+    n = tables[0].shape
+    if any(t.ndim != 1 or t.shape != n or t.dtype != torch.int32 for t in tables):
+        raise ValueError("pa, pb, ci, cj and first must be int32 vectors of one length")
+    if tuple(mask.shape) != (a.nbr, b.nbc):
+        raise ValueError(f"mask must be ({a.nbr}, {b.nbc}), got {tuple(mask.shape)}")
+
+
+def bsr_bsr_matmul_dense_plain(a: BSRMatrix, b: BSRMatrix, pa, pb, ci, cj, first, mask):
+    """K6's plain version: every pair's block product in one batched
+    ``torch.bmm``, added into its output block with ``index_add_``.  Pairs
+    in the dummy block-row ``nbr`` (the padding of a JAX-style plan) land in
+    an extra block-row that is dropped."""
+    bsz, nbr, nbc = a.block_size, a.nbr, b.nbc
+    with full_fp32():
+        prods = torch.bmm(a.blocks[pa.long()], b.blocks[pb.long()])
+    out = torch.zeros(((nbr + 1) * nbc, bsz, bsz), dtype=prods.dtype, device=prods.device)
+    out.index_add_(0, ci.long() * nbc + cj.long(), prods)
+    out = out[: nbr * nbc].reshape(nbr, nbc, bsz, bsz)
+    out = torch.where(mask.reshape(nbr, nbc, 1, 1), out, 0)  # select, never multiply
+    return out.transpose(1, 2).reshape(nbr * bsz, nbc * bsz)[: a.shape[0], : b.shape[1]]
+
+
+def bsr_bsr_matmul_dense(a: BSRMatrix, b: BSRMatrix, pa, pb, ci, cj, first, mask):
+    """``A_bsr @ B_bsr -> dense`` over the block pairs of
+    :func:`bsr_pair_plan` (K6).
+
+    ``pa/pb/ci/cj/first`` are the plan's int32 tables, sorted by output block;
+    they may be the ``n_pairs`` real pairs or the JAX planner's padded
+    tables (padding pairs, in block-row ``nbr``, are skipped).  ``mask`` is
+    the (nbr, nbc) visited-block mask; blocks no pair visits are zero.
+    """
+    tables = (pa, pb, ci, cj, first)
+    _check_plan(a, b, tables, mask)
+    if not _build.is_cuda(a.blocks, b.blocks, *tables, mask):
+        return bsr_bsr_matmul_dense_plain(a, b, pa, pb, ci, cj, first, mask)
+    _check_kernel_operands("bsr_bsr_matmul_dense", a.block_size, a.blocks, b.blocks)
+    if not all(t.is_contiguous() for t in tables):
+        raise ValueError("bsr_bsr_matmul_dense takes contiguous pair tables")
+    m, n = a.shape[0], b.shape[1]
+    c = torch.zeros((m, n), dtype=torch.float32, device=a.blocks.device)
+    # The kernel indexes blocks and output tiles by the tables unchecked:
+    # refuse slots past either capacity and blocks off the output (the
+    # padding pairs' dummy block-row nbr is allowed).
+    off = ((pa < 0) | (pa >= a.block_capacity) | (pb < 0) | (pb >= b.block_capacity)
+           | (ci < 0) | (ci > a.nbr) | (cj < 0) | (cj >= b.nbc)).any()
+    # One thread block per run of pairs that share an output block: the run
+    # heads are the pairs flagged in ``first`` (one scalar sync for the count).
+    heads = torch.nonzero(first).flatten().to(torch.int32)
+    if bool(off):
+        raise IndexError("bsr_bsr_matmul_dense: a pair table entry is out of range")
+    n_runs = int(heads.shape[0])
+    if n_runs == 0 or m == 0 or n == 0:
+        return c
+    bounds = torch.cat([heads, heads.new_full((1,), pa.shape[0])])
+    code = _build.load().smm_bsr_bsr_matmul_dense_f32(
+        bounds.data_ptr(), pa.data_ptr(), pb.data_ptr(), ci.data_ptr(), cj.data_ptr(),
+        a.blocks.data_ptr(), b.blocks.data_ptr(), c.data_ptr(), n_runs, a.nbr, m, n,
+        _build.stream_ptr(c.device),
+    )
+    _build.LAUNCHES["bsr_bsr_matmul_dense"] += 1
+    _build.check(code, "bsr_bsr_matmul_dense")
+    return c

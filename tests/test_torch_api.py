@@ -189,15 +189,22 @@ def test_unported_rungs_raise(operands, config):
 
 
 @pytest.mark.parametrize("output_format", ["sparse", "dense"])
-def test_bsr_rung_raises_before_touching_the_device(output_format):
-    """Block-sparse operands, which the JAX package sends to its BSR kernels
-    on an accelerator, raise on the CUDA device (decided on the host)."""
+def test_bsr_route_returns_the_product_on_the_cpu(output_format, config):
+    """Block-sparse operands, which go to the BSR kernels on the CUDA device
+    (decided on the host), return A @ B through route "bsr" on the CPU when
+    the route is forced (the kernels' plain versions, in float32)."""
     blocks = [sp.random(128, 128, density=1.0, random_state=s) for s in range(4)]
     a = sp.block_diag(blocks, format="csr")  # 4 of 16 blocks occupied
     b = sp.random(512, 512, density=0.3, format="csr", random_state=15)
     assert api._bsr_route_ok(a, "cuda") and not api._bsr_route_ok(a, "cpu")
-    with pytest.raises(NotImplementedError, match="BSR"):
-        tsmm.sparse_matrix_multiply(a, b, output_format, device="cuda")
+    config(force_bsr=True)
+    got = tsmm.sparse_matrix_multiply(a, b, output_format, device="cpu")
+    assert tsmm.get_last_route() == "bsr"
+    got = got.toarray() if output_format == "sparse" else got
+    assert got.dtype == np.float64
+    ref = (a @ b).toarray()
+    bound = 1e-5 * (abs(a) @ abs(b)).toarray()  # f32 products, relative to |A| @ |B|
+    assert np.all(np.abs(got - ref) <= bound)
 
 
 def test_multiply_esc_keywords_raise():

@@ -15,6 +15,7 @@ import torch
 
 import sparse_matrix_mult_tpu_torch as tsmm
 from sparse_matrix_mult_tpu_torch.ops.kernels import LAUNCHES
+from sparse_matrix_mult_tpu_torch.ops.kernels import bsr_spgemm as kb
 from sparse_matrix_mult_tpu_torch.ops.kernels import convert_kernels as ck
 from sparse_matrix_mult_tpu_torch.ops.kernels import triu_matmul as tm
 
@@ -147,3 +148,182 @@ def test_symmetric_multiply_on_the_card(cuda):
     ref = sp.triu(a @ b, format="csr")
     assert got.nnz == ref.nnz
     np.testing.assert_allclose(got.toarray(), ref.toarray(), rtol=1e-5, atol=1e-8)
+
+
+def _block_sparse(nbr, nbc, occ, seed, b=128):
+    """Dense f32 matrix whose occupied blocks (a fraction ``occ``, at least
+    one) hold standard-normal values."""
+    rng = np.random.default_rng(seed)
+    mask = rng.random((nbr, nbc)) < occ
+    mask[rng.integers(nbr), rng.integers(nbc)] = True
+    dense = np.zeros((nbr * b, nbc * b), np.float32)
+    for i, j in zip(*np.nonzero(mask)):
+        dense[i * b:(i + 1) * b, j * b:(j + 1) * b] = rng.standard_normal((b, b))
+    return dense
+
+
+def _ragged(rows, cols, seed):
+    rng = np.random.default_rng(seed)
+    dense = np.zeros((rows, cols), np.float32)
+    dense[: rows // 2, : cols // 2] = rng.standard_normal((rows // 2, cols // 2))
+    dense[-1, -1] = 3.0
+    return dense
+
+
+def _bsr(dense, device, capacity=None):
+    return tsmm.bsr_from_scipy(sp.csr_matrix(dense), 128, dtype=torch.float32,
+                               block_capacity=capacity, device=device)
+
+
+def _assert_within_bound(got, want, ad, bd, device):
+    """|got - want| <= 1e-5 * (|A| @ |B|) elementwise (f64 bound on the card)."""
+    a64 = torch.from_numpy(np.abs(ad).astype(np.float64)).to(device)
+    b64 = torch.from_numpy(np.abs(bd).astype(np.float64)).to(device)
+    bound = 1e-5 * (a64 @ b64)
+    assert not torch.isnan(got).any()
+    assert bool(((got.double() - want.double()).abs() <= bound).all())
+
+
+def _k5_operands(case):
+    rng = np.random.default_rng(9)
+    if case == "ragged":
+        ad = _ragged(200, 300, 1)
+    elif case == "empty_block_rows":
+        ad = np.zeros((4 * 128, 2 * 128), np.float32)
+        ad[2 * 128:3 * 128, :128] = rng.standard_normal((128, 128))
+    else:
+        ad = _block_sparse(*case, seed=sum(case[:2]))
+    return ad, rng.standard_normal((ad.shape[1], 333)).astype(np.float32)
+
+
+@pytest.mark.parametrize("case", [(1, 1, 1.0), (3, 4, 0.5), (5, 3, 0.6), "ragged",
+                                  "empty_block_rows"])
+def test_bsr_matmul_dense_kernel(cuda, case):
+    ad, bd = _k5_operands(case)
+    a = _bsr(ad, cuda)
+    b = torch.from_numpy(bd).to(cuda)
+    before = LAUNCHES["bsr_matmul_dense"]
+    got = kb.bsr_matmul_dense(a, b)
+    torch.cuda.synchronize()
+    assert LAUNCHES["bsr_matmul_dense"] == before + 1
+    assert got.shape == (ad.shape[0], bd.shape[1])
+    _assert_within_bound(got, kb.bsr_matmul_dense_plain(a, b), ad, bd, cuda)
+    empty = np.repeat(np.diff(a.indptr.cpu().numpy()) == 0, 128)[: ad.shape[0]]
+    assert bool((got[torch.from_numpy(empty).to(cuda)] == 0).all())
+
+
+def test_bsr_matmul_dense_kernel_on_a_truncated_container(cuda):
+    """``bsr_from_dense`` with 5 slots for 12 nonzero blocks: the kernel
+    reads only the stored blocks, as the plain version does, and block-row
+    2 (every block past the capacity) is zero."""
+    ad = _block_sparse(3, 4, 1.0, seed=34)
+    a = tsmm.bsr_from_dense(torch.from_numpy(ad).to(cuda), 5)
+    assert int(a.nblocks) == 12 and a.block_capacity == 5
+    bd = np.random.default_rng(8).standard_normal((4 * 128, 200)).astype(np.float32)
+    b = torch.from_numpy(bd).to(cuda)
+    got = kb.bsr_matmul_dense(a, b)
+    _assert_within_bound(got, kb.bsr_matmul_dense_plain(a, b), ad, bd, cuda)
+    assert bool((got[2 * 128:] == 0).all())
+
+
+def test_bsr_matmul_dense_kernel_reads_only_the_rows_it_needs(cuda):
+    """B with NaN rows past A's column count (inside A's last partial block
+    and beyond it): the kernel gives the product of B's first rows."""
+    ad, bd = _k5_operands("ragged")  # A is 200 x 300
+    a = _bsr(ad, cuda)
+    extra = np.vstack([bd, np.full((100, bd.shape[1]), np.nan, np.float32)])
+    got = kb.bsr_matmul_dense(a, torch.from_numpy(extra).to(cuda))
+    plain = kb.bsr_matmul_dense_plain(a, torch.from_numpy(bd).to(cuda))
+    _assert_within_bound(got, plain, ad, bd, cuda)
+
+
+def _k6_operands(case):
+    if case == "ragged":
+        ad, bd = _ragged(200, 300, 2), _ragged(300, 250, 3)
+    elif case == "empty_block_rows":
+        ad = _block_sparse(4, 3, 0.5, seed=4)
+        ad[:128] = 0
+        ad[3 * 128:] = 0
+        ad[128:256, :128] = 1.0
+        bd = _block_sparse(3, 4, 0.5, seed=5)
+    elif case == "single_pair":
+        ad = np.zeros((3 * 128, 3 * 128), np.float32)
+        bd = np.zeros((3 * 128, 3 * 128), np.float32)
+        ad[:128, 128:256] = 1.0
+        bd[128:256, 256:] = 2.0
+    else:
+        nbr, nbk, nbc = case
+        ad = _block_sparse(nbr, nbk, 0.5, seed=nbr + nbk)
+        bd = _block_sparse(nbk, nbc, 0.5, seed=nbk + nbc + 1)
+    return ad, bd
+
+
+@pytest.mark.parametrize("padded", [False, True])
+@pytest.mark.parametrize("case", [(1, 1, 1), (3, 4, 3), (5, 3, 4), "ragged", "empty_block_rows",
+                                  "single_pair"])
+def test_bsr_bsr_matmul_dense_kernel(cuda, case, padded):
+    """Against the plain version, on the real pairs or the planner's padded
+    tables; output blocks no pair visits are exactly zero."""
+    ad, bd = _k6_operands(case)
+    a_sp, b_sp = sp.csr_matrix(ad), sp.csr_matrix(bd)
+    plan = kb.bsr_pair_plan(a_sp, b_sp, 128)
+    n = None if padded else plan["n_pairs"]
+    tables = [torch.from_numpy(plan[k][:n]).to(cuda) for k in ("pa", "pb", "ci", "cj", "first")]
+    mask = torch.from_numpy(plan["mask"]).to(cuda)
+    a, b = _bsr(ad, cuda), _bsr(bd, cuda)
+    before = LAUNCHES["bsr_bsr_matmul_dense"]
+    got = kb.bsr_bsr_matmul_dense(a, b, *tables, mask)
+    torch.cuda.synchronize()
+    assert LAUNCHES["bsr_bsr_matmul_dense"] == before + 1
+    assert got.shape == (ad.shape[0], bd.shape[1])
+    _assert_within_bound(got, kb.bsr_bsr_matmul_dense_plain(a, b, *tables, mask), ad, bd, cuda)
+    nbr, nbc = plan["mask"].shape
+    visited = np.repeat(np.repeat(plan["mask"], 128, axis=0), 128, axis=1)
+    visited = torch.from_numpy(visited[: ad.shape[0], : bd.shape[1]]).to(cuda)
+    assert bool((got[~visited] == 0).all())
+
+
+def test_bsr_kernels_reject_other_types_and_block_sizes(cuda):
+    ad = _block_sparse(2, 2, 1.0, seed=6)
+    a64 = tsmm.bsr_from_scipy(sp.csr_matrix(ad), 128, dtype=torch.float64, device=cuda)
+    with pytest.raises(TypeError):
+        kb.bsr_matmul_dense(a64, torch.ones((256, 8), dtype=torch.float64, device=cuda))
+    a = _bsr(ad, cuda)
+    with pytest.raises(TypeError):
+        kb.bsr_matmul_dense(a, torch.ones((256, 8), dtype=torch.float64, device=cuda))
+    small = tsmm.bsr_from_scipy(sp.csr_matrix(ad), 64, dtype=torch.float32, device=cuda)
+    with pytest.raises(ValueError):
+        kb.bsr_matmul_dense(small, torch.ones((256, 8), device=cuda))
+    plan = kb.bsr_pair_plan(sp.csr_matrix(ad), sp.csr_matrix(ad), 64)
+    tables = [torch.from_numpy(plan[k]).to(cuda) for k in ("pa", "pb", "ci", "cj", "first")]
+    with pytest.raises(ValueError):
+        kb.bsr_bsr_matmul_dense(small, small, *tables, torch.from_numpy(plan["mask"]).to(cuda))
+    plan = kb.bsr_pair_plan(sp.csr_matrix(ad), sp.csr_matrix(ad), 128)
+    tables = [torch.from_numpy(plan[k]).to(cuda) for k in ("pa", "pb", "ci", "cj", "first")]
+    with pytest.raises(TypeError):
+        kb.bsr_bsr_matmul_dense(a64, a64, *tables, torch.from_numpy(plan["mask"]).to(cuda))
+    mask = torch.from_numpy(plan["mask"]).to(cuda)
+    for i, bad in ((0, a.block_capacity), (1, -1), (2, a.nbr + 1), (3, a.nbc)):
+        wrong = [t.clone() for t in tables]
+        wrong[i][0] = bad  # a slot past the capacity, a block off the output
+        with pytest.raises(IndexError):
+            kb.bsr_bsr_matmul_dense(a, a, *wrong, mask)
+
+
+@pytest.mark.parametrize("kind,key", [("bsr_x_dense", "bsr_matmul_dense"),
+                                      ("bsr_x_bsr", "bsr_bsr_matmul_dense")])
+@pytest.mark.parametrize("output_format", ["sparse", "dense"])
+def test_bsr_route_on_the_card(cuda, kind, key, output_format):
+    """A block-sparse A (4 of 16 blocks) takes route "bsr" through K5 (B
+    uniform) or K6 (B = A), against scipy."""
+    a = sp.block_diag([sp.random(128, 128, density=1.0, random_state=s) for s in range(4)],
+                      format="csr")
+    b = a if kind == "bsr_x_bsr" else sp.random(512, 512, density=0.3, format="csr",
+                                                random_state=7)
+    before = dict(LAUNCHES)
+    got = tsmm.sparse_matrix_multiply(a, b, output_format, device="cuda")
+    assert tsmm.get_last_route() == "bsr"
+    assert LAUNCHES[key] > before[key]
+    got = got.toarray() if output_format == "sparse" else got
+    ref = (a @ b).toarray()
+    assert np.all(np.abs(got - ref) <= 1e-5 * (abs(a) @ abs(b)).toarray())

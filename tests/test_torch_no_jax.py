@@ -16,6 +16,7 @@ def test_import_leaves_jax_unloaded():
         "import sys, sparse_matrix_mult_tpu_torch\n"
         "import sparse_matrix_mult_tpu_torch.ops.kernels.convert_kernels\n"
         "import sparse_matrix_mult_tpu_torch.ops.kernels.triu_matmul\n"
+        "import sparse_matrix_mult_tpu_torch.ops.kernels.bsr_spgemm\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'sparse_matrix_mult_tpu' or m.startswith('sparse_matrix_mult_tpu.'))\n"
         "assert not bad, bad\n"
