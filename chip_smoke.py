@@ -29,12 +29,31 @@ Phases, one line each:
                 request, and each result against an f64 oracle on the card;
   9. bsr-timing -- requests 1 and 3 end to end on the BSR route and, with
                 use_bsr=False, on the dense route, warm, min of 3; and
-                request 1's time per stage.
+                request 1's time per stage;
+ 10. fused-kernels -- the fused conversions' path, counted: K7
+                (dense_to_csr_fused) on the 12,288^2 sibling product and the
+                full 10k headline product, K8 (csr_to_dense_fused) on the
+                headline operand A and the packed sibling product; each bit
+                for bit against its plain version and K4/K3, K7 the same at
+                three lanes, and CUDA-event times beside K4's and K3's;
+ 11. triple  -- the triple product H Q H^T through sparse_matrix_multiply
+                (use_triple_product=True, compute_full_matrix 0 and 1; H the
+                headline A, Q 10k^2 d=0.1), counted: route "triple", K3 x2
+                and K1 per request, each result against an f64 oracle on
+                the card; then (triple-timing, triple-stages) end to end and
+                device-resident triple_product, warm, min of 3, K1's
+                transpose_b form against its plain version at the second
+                contraction, and the time per stage;
+ 12. inversion -- invert and posterior_covariance at n_obs 4,096, n_state
+                16,384, counted, against an f64 oracle on the card computed
+                with torch.linalg (x_post, p_diag, S and the posterior
+                covariance within 1e-3 of each one's largest entry), with
+                kappa_2(S); then (inversion-timing) both warm, min of 3.
 
-Then a JSON line of the kernels (launches summed over the two counted
-paths), the nvidia-smi line, and last {"ok": true, "device": {...}}.  Any failed check exits non-zero; without a
-CUDA device, or without the package beside it, it exits non-zero before any
-result is printed.
+Then a JSON line of the kernels (launches summed over the five counted paths),
+the nvidia-smi line, and last {"ok": true, "device": {...}}.  Any failed
+check exits non-zero; without a CUDA device, or without the package beside
+it, it exits non-zero before any result is printed.
 """
 
 import json
@@ -54,6 +73,8 @@ from sparse_matrix_mult_tpu_torch.ops.kernels import LAUNCHES, _build, reset_lau
 from sparse_matrix_mult_tpu_torch.ops.kernels import bsr_spgemm as kb
 from sparse_matrix_mult_tpu_torch.ops.kernels import convert_kernels as ck
 from sparse_matrix_mult_tpu_torch.ops.kernels import triu_matmul as tm
+from sparse_matrix_mult_tpu_torch.ops.matmul import full_fp32
+from sparse_matrix_mult_tpu_torch.models.inversion import invert, posterior_covariance
 from sparse_matrix_mult_tpu_torch.types_bsr import _tobsr_padded
 from sparse_matrix_mult_tpu_torch.utils.native import expansion_size
 from sparse_matrix_mult_tpu_torch.utils.transfer import (
@@ -66,6 +87,11 @@ SIB_N, SIB_DENSITY = 12_288, 0.006  # dense route, ~36% dense product
 # uniformly sparse B_u whose every block is occupied.
 BSR_N, BSR_BLOCK, BSR_OCC, BSR_SEEDS = 8192, 128, 0.10, (21, 22)
 BU_DENSITY, BU_SEED = 0.01, 23
+FUSED_LANES = (2048, 8192, 16384)  # K7 must give the same output at each
+TRIPLE_Q_SEED = 3  # Q of the triple product: N^2, DENSITY (benchmarks/run.py:275-277)
+# Inversion-shaped problem (n_obs << n_state): H d=0.05, Q from A d=0.002.
+INV_OBS, INV_STATE, INV_H_DENSITY, INV_Q_DENSITY, INV_SEED = 4096, 16_384, 0.05, 0.002, 31
+INV_TOL = 1e-3  # |got - ref|_inf <= INV_TOL * |ref|_inf, float32 against the f64 oracle
 RTOL, ATOL = 1e-5, 1e-8  # the reference's oracle tolerance
 KERNEL_RUNS = 5
 PATH_RUNS = 3
@@ -86,6 +112,12 @@ KERNELS = {
     "bsr_bsr_matmul_dense": ("K6 bsr_bsr_matmul_dense",
                              "sparse_matrix_mult_tpu_torch/csrc/bsr_spgemm.cu",
                              "sparse_matrix_mult_tpu/ops/pallas/bsr_spgemm.py:193"),
+    "dense_to_csr_fused": ("K7 dense_to_csr_fused",
+                           "sparse_matrix_mult_tpu_torch/csrc/convert_fused.cu",
+                           "sparse_matrix_mult_tpu/ops/pallas/convert_kernels.py:617"),
+    "csr_to_dense_fused": ("K8 csr_to_dense_fused",
+                           "sparse_matrix_mult_tpu_torch/csrc/convert_fused.cu",
+                           "sparse_matrix_mult_tpu/ops/pallas/convert_kernels.py:736"),
 }
 DENSE_PATH_KERNELS = ("matmul_triu", "dense_to_csr_triu", "csr_to_dense", "dense_to_csr")
 
@@ -225,37 +257,39 @@ def device_busy_s(fn):
     return total_us / 1e6, wall
 
 
+def timed(best: dict, key: str, fn):
+    """Run ``fn`` between two synchronisations and keep the least host-clock
+    seconds seen under ``best[key]``; returns what ``fn`` returns."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    best[key] = min(best.get(key, float("inf")), time.perf_counter() - t)
+    return out
+
+
 def stage_times(a_sp, b_sp) -> dict:
     """Host-clock seconds of each stage of the headline sparse_matrix_multiply,
     calling in order the functions its dense route calls; min of PATH_RUNS + 1.
     ``_fetch_full_triu`` is timed whole and, apart, its device extraction (K2)
     and its values download; its host index rebuild is the rest."""
     best = {}
-
-    def timed(key, fn):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        best[key] = min(best.get(key, float("inf")), time.perf_counter() - t)
-        return out
-
     for _ in range(PATH_RUNS + 1):
-        timed("router_expansion_size",
+        timed(best, "router_expansion_size",
               lambda: expansion_size(a_sp.indices, a_sp.nnz, b_sp.indptr))
-        timed("router_bsr_occupancy_scan", lambda: api._bsr_route_ok(a_sp, DEVICE))
+        timed(best, "router_bsr_occupancy_scan", lambda: api._bsr_route_ok(a_sp, DEVICE))
         dtype, _ = api._upload_dtype(a_sp, b_sp, DEVICE)
-        a, b = timed("upload_from_scipy_a_b",
+        a, b = timed(best, "upload_from_scipy_a_b",
                      lambda: (smt.from_scipy(a_sp, dtype=dtype, device=DEVICE),
                               smt.from_scipy(b_sp, dtype=dtype, device=DEVICE)))
-        c = timed("product_k3x2_k1_triu", lambda: spgemm_dense_out(a, b, symmetric=True))
-        nnz = timed("count_nonzero_fetch", lambda: int(torch.count_nonzero(c)))
-        csr = timed("fetch_part_extract_k2",
+        c = timed(best, "product_k3x2_k1_triu", lambda: spgemm_dense_out(a, b, symmetric=True))
+        nnz = timed(best, "count_nonzero_fetch", lambda: int(torch.count_nonzero(c)))
+        csr = timed(best, "fetch_part_extract_k2",
                     lambda: api._extract_csr(c, smt.bucket_capacity(nnz), symmetric=True))
-        timed("fetch_part_values_d2h_f64",
+        timed(best, "fetch_part_values_d2h_f64",
               lambda: fetch_np(csr.values[:nnz]).astype(np.float64))
         del csr
-        timed("fetch_full_triu_total", lambda: api._fetch_full_triu(c, nnz))
+        timed(best, "fetch_full_triu_total", lambda: api._fetch_full_triu(c, nnz))
         del a, b, c
     best["fetch_part_index_rebuild_by_difference"] = (
         best["fetch_full_triu_total"] - best["fetch_part_extract_k2"]
@@ -270,14 +304,6 @@ def bsr_stage_times(a_sp, b_sp):
     min of PATH_RUNS + 1.  Returns the times and the extraction used."""
     best = {}
     bsz = smt.get_config().block_size
-
-    def timed(key, fn):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        best[key] = min(best.get(key, float("inf")), time.perf_counter() - t)
-        return out
 
     def occupancies():
         return api._bsr_route_ok(a_sp, DEVICE), api.block_occupancy(b_sp, bsz)
@@ -294,19 +320,20 @@ def bsr_stage_times(a_sp, b_sp):
         return a, b, tables, torch.from_numpy(p["mask"]).to(DEVICE)
 
     for _ in range(PATH_RUNS + 1):
-        timed("occupancy_scans_a_b", occupancies)
-        bs_a, bs_b, p = timed("tobsr_a_b_and_pair_plan", plan)
-        a, b, tables, mask = timed("upload_blocks_and_plan", lambda: upload(bs_a, bs_b, p))
-        c = timed("product_k6", lambda: kb.bsr_bsr_matmul_dense(a, b, *tables, mask))
-        nnz = timed("count_nonzero_fetch", lambda: int(torch.count_nonzero(c)))
+        timed(best, "occupancy_scans_a_b", occupancies)
+        bs_a, bs_b, p = timed(best, "tobsr_a_b_and_pair_plan", plan)
+        a, b, tables, mask = timed(best, "upload_blocks_and_plan", lambda: upload(bs_a, bs_b, p))
+        c = timed(best, "product_k6", lambda: kb.bsr_bsr_matmul_dense(a, b, *tables, mask))
+        nnz = timed(best, "count_nonzero_fetch", lambda: int(torch.count_nonzero(c)))
         m, n = c.shape
         if m * n * c.element_size() < (4 + c.element_size()) * fine_capacity(nnz):
             extraction = "host packing"
-            timed("download_and_host_pack", lambda: fetch_dense_to_csr(c, nnz=nnz))
+            timed(best, "download_and_host_pack", lambda: fetch_dense_to_csr(c, nnz=nnz))
         else:
             extraction = "K4"
-            csr = timed("extract_k4", lambda: api._extract_csr(c, smt.bucket_capacity(nnz)))
-            timed("download_to_scipy", lambda: smt.to_scipy(csr))
+            csr = timed(best, "extract_k4",
+                        lambda: api._extract_csr(c, smt.bucket_capacity(nnz)))
+            timed(best, "download_to_scipy", lambda: smt.to_scipy(csr))
             del csr
         del a, b, tables, mask, c
     return best, extraction
@@ -370,6 +397,313 @@ def check_bsr_result(label, got, oracle, bound) -> float:
     diff = (got - oracle).abs()
     require(bool((diff <= bound).all()), f"{label}: outside 1e-5 of |A||B| of the f64 oracle")
     return float(diff.max())
+
+
+def counted(calls, results):
+    """Run ``calls`` ((label, fn) pairs; ``fn`` gets the results so far) in
+    order, each result into ``results``: (launches per call, seconds per
+    call).  The caller zeroes the counts before the path and reads them
+    after it."""
+    per_call, seconds = {}, {}
+    for label, fn in calls:
+        before = dict(LAUNCHES)
+        t = time.perf_counter()
+        results[label] = fn(results)
+        torch.cuda.synchronize()
+        seconds[label] = time.perf_counter() - t
+        per_call[label] = {k: LAUNCHES[k] - before[k] for k in KERNELS}
+    return per_call, seconds
+
+
+def request(a_sp, b_sp, **kw):
+    """A call for :func:`counted`: sparse_matrix_multiply and its route."""
+    return lambda _: (smt.sparse_matrix_multiply(a_sp, b_sp, **kw), smt.get_last_route())
+
+
+def split_answers(answers: dict):
+    """({label: result}, {label: route}) of the answers of :func:`request` calls."""
+    return ({label: got for label, (got, _) in answers.items()},
+            {label: route for label, (_, route) in answers.items()})
+
+
+def same_arrays(got, want, what: str) -> None:
+    for g, w, field in zip(got, want, ("indptr", "indices", "values")):
+        require(torch.equal(g, w), f"{what}: {field} differs")
+
+
+def fused_kernels(a_sp, b_sp, sa_sp, sb_sp):
+    """Phase 10: K7 and K8 through their entry points at the main path's
+    shapes, counted; then each output bit for bit against its plain version
+    and K4/K3, K7 at three lanes, and the times."""
+    a = smt.from_scipy(a_sp, dtype=torch.float32, device=DEVICE)
+    with full_fp32():
+        c_head = torch.matmul(csr_to_dense(a), csr_to_dense(
+            smt.from_scipy(b_sp, dtype=torch.float32, device=DEVICE)))
+        c_sib = torch.matmul(
+            csr_to_dense(smt.from_scipy(sa_sp, dtype=torch.float32, device=DEVICE)),
+            csr_to_dense(smt.from_scipy(sb_sp, dtype=torch.float32, device=DEVICE)))
+    nnz_head, nnz_sib = int(torch.count_nonzero(c_head)), int(torch.count_nonzero(c_sib))
+    cap_head, cap_sib = smt.bucket_capacity(nnz_head), smt.bucket_capacity(nnz_sib)
+    a_csr = (a.indptr, a.indices, a.values)
+
+    out = {}
+    reset_launches()
+    per_call, _ = counted([
+        (f"k7_sibling_{SIB_N}", lambda _: ck.dense_to_csr_fused(c_sib, cap_sib)),
+        (f"k7_headline_{N}", lambda _: ck.dense_to_csr_fused(c_head, cap_head)),
+        (f"k8_operand_a_{N}", lambda _: ck.csr_to_dense_fused(*a_csr, a.shape)),
+        (f"k8_sibling_{SIB_N}",
+         lambda done: ck.csr_to_dense_fused(*done[f"k7_sibling_{SIB_N}"], c_sib.shape)),
+    ], out)
+    launches = dict(LAUNCHES)
+    k7_sib = out[f"k7_sibling_{SIB_N}"]
+    for key in KERNELS:
+        want = 2 if key in ("dense_to_csr_fused", "csr_to_dense_fused") else 0
+        require(launches[key] == want, f"fused path: {launches[key]} launches of {KERNELS[key][0]}")
+
+    for label, c, cap, nnz in ((f"k7_sibling_{SIB_N}", c_sib, cap_sib, nnz_sib),
+                               (f"k7_headline_{N}", c_head, cap_head, nnz_head)):
+        got = out[label]
+        require(int(got[0][-1]) == nnz, f"{label}: indptr[-1] {int(got[0][-1])} != nnz {nnz}")
+        same_arrays(got, ck.dense_to_csr_fused_plain(c, cap), f"{label} against plain")
+        same_arrays(got, ck.dense_to_csr(c, cap), f"{label} against K4")
+    for lane in FUSED_LANES:
+        same_arrays(ck.dense_to_csr_fused(c_sib, cap_sib, lane=lane), k7_sib,
+                    f"K7 at lane {lane}")
+    a_dense = out[f"k8_operand_a_{N}"]
+    require(torch.equal(a_dense, ck.csr_to_dense_fused_plain(*a_csr, a.shape)),
+            "K8 on A differs from plain")
+    require(torch.equal(a_dense, ck.csr_to_dense(*a_csr, a.shape)), "K8 on A differs from K3")
+    sib_dense = out[f"k8_sibling_{SIB_N}"]
+    require(torch.equal(sib_dense, c_sib), "K8 does not give back the sibling product")
+    require(torch.equal(sib_dense, ck.csr_to_dense_fused_plain(*k7_sib, c_sib.shape)),
+            "K8 on the sibling differs from plain")
+    require(torch.equal(sib_dense, ck.csr_to_dense(*k7_sib, c_sib.shape)),
+            "K8 on the sibling differs from K3")
+    del out, a_dense, sib_dense
+
+    times = {
+        "k7_sib": event_ms(lambda: ck.dense_to_csr_fused(c_sib, cap_sib)),
+        "k7_sib_plain": event_ms(lambda: ck.dense_to_csr_fused_plain(c_sib, cap_sib)),
+        "k4_sib": event_ms(lambda: ck.dense_to_csr(c_sib, cap_sib)),
+        "k7_head": event_ms(lambda: ck.dense_to_csr_fused(c_head, cap_head)),
+        "k7_head_plain": event_ms(lambda: ck.dense_to_csr_fused_plain(c_head, cap_head)),
+        "k4_head": event_ms(lambda: ck.dense_to_csr(c_head, cap_head)),
+        "k8_a": event_ms(lambda: ck.csr_to_dense_fused(*a_csr, a.shape)),
+        "k8_a_plain": event_ms(lambda: ck.csr_to_dense_fused_plain(*a_csr, a.shape)),
+        "k3_a": event_ms(lambda: ck.csr_to_dense(*a_csr, a.shape)),
+        "k8_sib": event_ms(lambda: ck.csr_to_dense_fused(*k7_sib, c_sib.shape)),
+        "k8_sib_plain": event_ms(lambda: ck.csr_to_dense_fused_plain(*k7_sib, c_sib.shape)),
+        "k3_sib": event_ms(lambda: ck.csr_to_dense(*k7_sib, c_sib.shape)),
+    }
+    for lane in FUSED_LANES:
+        times[f"k7_sib_lane_{lane}"] = event_ms(
+            lambda: ck.dense_to_csr_fused(c_sib, cap_sib, lane=lane))
+    report = {
+        # Bit for bit against the plain versions, checked above.
+        "dense_to_csr_fused": dict(max_abs_err=0.0, ms=times["k7_sib"],
+                                   plain_ms=times["k7_sib_plain"]),
+        "csr_to_dense_fused": dict(max_abs_err=0.0, ms=times["k8_a"],
+                                   plain_ms=times["k8_a_plain"]),
+    }
+    t = times
+    line = " | ".join([
+        f"K7 {SIB_N}^2 (nnz {nnz_sib}) {t['k7_sib']:.3f} ms (plain {t['k7_sib_plain']:.3f}, "
+        f"K4 {t['k4_sib']:.3f}); lanes " + ", ".join(
+            f"{lane}: {t[f'k7_sib_lane_{lane}']:.3f} ms" for lane in FUSED_LANES)
+        + " (identical outputs)",
+        f"K7 {N}^2 full product (nnz {nnz_head}) {t['k7_head']:.3f} ms "
+        f"(plain {t['k7_head_plain']:.3f}, K4 {t['k4_head']:.3f})",
+        f"K8 {N}^2 operand A (nnz {a_sp.nnz}) {t['k8_a']:.3f} ms (plain {t['k8_a_plain']:.3f}, "
+        f"K3 {t['k3_a']:.3f})",
+        f"K8 {SIB_N}^2 packed sibling {t['k8_sib']:.3f} ms (plain {t['k8_sib_plain']:.3f}, "
+        f"K3 {t['k3_sib']:.3f})",
+        "bit for bit against plain and K4/K3",
+        f"launches by call {per_call}", f"launches {launches}"])
+    return report, per_call, launches, line
+
+
+def triple_oracle(h_sp, q_sp):
+    """f64 H Q H^T on the card and its bound 1e-5 * (|H| |Q| |H|^T)."""
+    h64, q64 = csr_on_card(h_sp), csr_on_card(q_sp)
+    c = torch.matmul(torch.matmul(h64, q64), h64.T)
+    bound = RTOL * torch.matmul(torch.matmul(h64.abs(), q64.abs()), h64.abs().T)
+    return c, bound
+
+
+def mirror(x: torch.Tensor) -> torch.Tensor:
+    return torch.triu(x) + torch.triu(x, 1).T
+
+
+def triple_stage_times(h_sp, q_sp) -> dict:
+    """Host-clock seconds of each stage of sparse_matrix_multiply(H, Q,
+    use_triple_product=True, compute_full_matrix=1), calling in order the
+    functions its "triple" route calls (the FAST branch of
+    triple_product_dense); min of PATH_RUNS + 1."""
+    best = {}
+
+    def hq(hd, qd):
+        with full_fp32():
+            return torch.matmul(hd, qd)
+
+    for _ in range(PATH_RUNS + 1):
+        timed(best, "router_expansion_size",
+              lambda: expansion_size(h_sp.indices, h_sp.nnz, q_sp.indptr))
+        dtype, _ = api._upload_dtype(h_sp, q_sp, DEVICE)
+        h, q = timed(best, "upload_from_scipy_h_q",
+                     lambda: (smt.from_scipy(h_sp, dtype=dtype, device=DEVICE),
+                              smt.from_scipy(q_sp, dtype=dtype, device=DEVICE)))
+        hd, qd = timed(best, "densify_k3_x2", lambda: (csr_to_dense(h, torch.float32),
+                                                       csr_to_dense(q, torch.float32)))
+        t_hq = timed(best, "product_h_q_cublas", lambda: hq(hd, qd))
+        c = timed(best, "product_k1_t_ht", lambda: tm.matmul_triu(t_hq, hd, transpose_b=True))
+        out_dtype = torch.promote_types(h.dtype, q.dtype)
+        full = timed(best, "cast_triu_mirror", lambda: mirror(c.to(out_dtype)))
+        timed(best, "download_d2h_cast_f64", lambda: fetch_np(full).astype(np.float64))
+        del h, q, hd, qd, t_hq, c, full
+    return best
+
+
+def triple_phase(h_sp, q_sp, name: str, smi: str):
+    """Phase 11: the triple product through sparse_matrix_multiply, counted,
+    each result against the f64 oracle; then its times."""
+    t0 = time.perf_counter()
+    labels = [f"triple_{N}_full{cfm}" for cfm in (0, 1)]
+    answers = {}
+    reset_launches()
+    per_call, seconds = counted(
+        [(label, request(h_sp, q_sp, use_triple_product=True, compute_full_matrix=cfm))
+         for cfm, label in enumerate(labels)], answers)
+    launches = dict(LAUNCHES)
+    results, routes = split_answers(answers)
+    del answers
+    c64, bound64 = triple_oracle(h_sp, q_sp)
+    errs = {}
+    for cfm, label in enumerate(labels):
+        got, route = results.pop(label), routes[label]
+        require(route == "triple", f"{label}: route {route!r} != 'triple'")
+        require(per_call[label]["csr_to_dense"] == 2 and per_call[label]["matmul_triu"] == 1,
+                f"{label}: launches {per_call[label]}, not K3 x2 and K1")
+        got = torch.from_numpy(got).to(DEVICE)
+        require(tuple(got.shape) == (N, N) and bool(torch.isfinite(got).all()),
+                f"{label}: not a finite {N}^2 result")
+        want, bound = (mirror(c64), mirror(bound64)) if cfm else (torch.triu(c64),
+                                                                torch.triu(bound64))
+        if cfm:
+            require(torch.equal(got, got.T), f"{label}: the lower triangle is not the mirror")
+        else:
+            require(not bool(torch.tril(got, -1).any()), f"{label}: the lower triangle is not 0")
+        require(torch.allclose(got, want, rtol=RTOL, atol=ATOL), f"{label}: outside the oracle")
+        diff = (got - want).abs()
+        require(bool((diff <= bound).all()), f"{label}: outside 1e-5 of |H||Q||H|^T")
+        errs[label] = (float(diff.max()), float((diff / want.abs().clamp_min(1e-300)).max()))
+        del got, want, bound, diff
+    del c64, bound64
+    phase("triple", t0, " | ".join(
+        [f"{label}: max abs err {e[0]:.3e}, max rel err {e[1]:.3e} vs f64 oracle, "
+         f"first call {seconds[label]:.3f} s" for label, e in errs.items()]
+        + [f"launches by request {per_call}", f"launches {launches}"]))
+
+    t0 = time.perf_counter()
+    e2e = {cfm: wall_s(lambda cfm=cfm: smt.sparse_matrix_multiply(
+        h_sp, q_sp, use_triple_product=True, compute_full_matrix=cfm)) for cfm in (0, 1)}
+    require(smt.get_last_route() == "triple", "timed triple call took another route")
+    h = smt.from_scipy(h_sp, dtype=torch.float32, device=DEVICE)
+    q = smt.from_scipy(q_sp, dtype=torch.float32, device=DEVICE)
+    dev = {cfm: wall_s(lambda cfm=cfm: smt.triple_product(h, q, cfm)) for cfm in (0, 1)}
+    # K1 in its transpose_b form, at the second contraction (T, H) it is given.
+    hd = csr_to_dense(h, torch.float32)
+    with full_fp32():
+        t_hq = torch.matmul(hd, csr_to_dense(q, torch.float32))
+        bound = torch.triu(RTOL * torch.matmul(t_hq.abs(), hd.abs().T))
+    err = (torch.triu(tm.matmul_triu(t_hq, hd, transpose_b=True))
+           - torch.triu(tm.matmul_triu_plain(t_hq, hd, transpose_b=True))).abs()
+    require(bool((err <= bound).all()), "K1 transpose_b outside 1e-5 of |T||H|^T against plain")
+    k1t = dict(max_abs_err=float(err.max()),
+               ms=event_ms(lambda: tm.matmul_triu(t_hq, hd, transpose_b=True)),
+               plain_ms=event_ms(lambda: tm.matmul_triu_plain(t_hq, hd, transpose_b=True)))
+    del h, q, hd, t_hq, bound, err
+    stages = triple_stage_times(h_sp, q_sp)
+    phase("triple-timing", t0, f"{name} [{smi}]: host clock, min of {PATH_RUNS}: "
+          + " | ".join(f"compute_full_matrix={cfm}: sparse_matrix_multiply end to end "
+                       f"{e2e[cfm]:.4f} s, device-resident triple_product {dev[cfm]:.4f} s"
+                       for cfm in (0, 1))
+          + f" | K1 transpose_b on (T, H) {k1t['ms']:.3f} ms (plain {k1t['plain_ms']:.3f} ms, "
+          f"CUDA events, min of {KERNEL_RUNS}; max abs err {k1t['max_abs_err']:.2e})")
+    print(f"[triple-stages] sparse_matrix_multiply(use_triple_product=True, "
+          f"compute_full_matrix=1) {N}^2, host clock, min of {PATH_RUNS + 1}: "
+          + json.dumps(stages), flush=True)
+    return per_call, launches
+
+
+def inversion_problem():
+    """The inversion-shaped problem (n_obs << n_state): H, Q (symmetric,
+    strictly diagonally dominant), y, x0, r_diag, all from INV_SEED."""
+    rng = np.random.default_rng(INV_SEED)
+    h = sp.random(INV_OBS, INV_STATE, density=INV_H_DENSITY, format="csr", random_state=INV_SEED)
+    a = sp.random(INV_STATE, INV_STATE, density=INV_Q_DENSITY, format="csr",
+                  random_state=INV_SEED + 1)
+    sym = ((a + a.T) * 0.5).tocsr()
+    q = (sym + sp.diags(1.0 + np.asarray(abs(sym).sum(axis=1)).ravel())).tocsr()
+    r_diag = 0.5 + rng.random(INV_OBS)
+    y = rng.standard_normal(INV_OBS)
+    x0 = rng.standard_normal(INV_STATE)
+    return h, q, y, x0, r_diag
+
+
+def inversion_phase(name: str, smi: str):
+    """Phase 12: invert and posterior_covariance on the card, counted, against
+    an f64 oracle computed here with torch.linalg; kappa_2(S) and the times."""
+    t0 = time.perf_counter()
+    h_sp, q_sp, y, x0, r_diag = inversion_problem()
+    h = smt.from_scipy(h_sp, dtype=torch.float32, device=DEVICE)
+    q = smt.from_scipy(q_sp, dtype=torch.float32, device=DEVICE)
+    y_t, x0_t, r_t = (torch.from_numpy(v).to(DEVICE) for v in (y, x0, r_diag))
+    label_inv = f"invert_{INV_OBS}x{INV_STATE}"
+    label_cov = f"posterior_covariance_{INV_OBS}x{INV_STATE}"
+    results = {}
+    reset_launches()
+    per_call, _ = counted([
+        (label_inv, lambda _: invert(h, q, y_t, x0_t, r_t)),
+        (label_cov, lambda _: posterior_covariance(h, q, r_t)),
+    ], results)
+    launches = dict(LAUNCHES)
+    for label in (label_inv, label_cov):
+        require(per_call[label]["matmul_triu"] == 1 and per_call[label]["csr_to_dense"] == 4,
+                f"{label}: launches {per_call[label]}, not K3 x4 and K1")
+
+    h64, q64 = csr_on_card(h_sp), csr_on_card(q_sp)
+    y64, x064, r64 = (torch.from_numpy(v).to(DEVICE) for v in (y, x0, r_diag))
+    s64 = torch.matmul(torch.matmul(h64, q64), h64.T) + torch.diag(r64)
+    qht64 = torch.matmul(q64, h64.T)
+    x_post64 = x064 + torch.matmul(qht64, torch.linalg.solve(s64, y64 - torch.matmul(h64, x064)))
+    p64 = q64 - torch.matmul(qht64, torch.linalg.solve(s64, qht64.T))
+    del h64, qht64
+    eig = torch.linalg.eigvalsh(s64)
+    kappa = float(eig[-1] / eig[0])
+    res, p_full = results[label_inv], results[label_cov]
+    errs = {}
+    for what, got, ref in (("x_post", res.x_post, x_post64),
+                           ("p_diag", res.p_diag, torch.diagonal(p64)),
+                           ("s", res.s, s64), ("posterior_covariance", p_full, p64)):
+        require(got.dtype == torch.float32 and got.shape == ref.shape, f"{what}: {got.dtype}, "
+                f"{tuple(got.shape)}")
+        scale = float(ref.abs().max())
+        errs[what] = float((got.double() - ref).abs().max()) / scale
+        require(errs[what] <= INV_TOL, f"{what}: |got - ref|_inf = {errs[what]:.3e} of |ref|_inf,"
+                f" above {INV_TOL}")
+    del results, res, p_full, s64, p64, q64
+    phase("inversion", t0, f"n_obs {INV_OBS}, n_state {INV_STATE}, nnz(H) {h_sp.nnz}, nnz(Q) "
+          f"{q_sp.nnz}: kappa_2(S) {kappa:.4e} | |got - ref|_inf / |ref|_inf vs f64 oracle: "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+          + f" | launches by request {per_call} | launches {launches}")
+
+    t0 = time.perf_counter()
+    t_inv = wall_s(lambda: invert(h, q, y_t, x0_t, r_t))
+    t_cov = wall_s(lambda: posterior_covariance(h, q, r_t))
+    phase("inversion-timing", t0, f"{name} [{smi}]: device-resident, host clock, min of "
+          f"{PATH_RUNS}: invert {t_inv:.4f} s | posterior_covariance {t_cov:.4f} s")
+    return per_call, launches
 
 
 def main() -> int:
@@ -466,17 +800,13 @@ def main() -> int:
     # 4. main path: the requests through the public entry point, counted
     t0 = time.perf_counter()
     ops = {"headline": (a_sp, b_sp), "sibling": (sa_sp, sb_sp)}
-    results, routes, seconds, per_request = {}, {}, {}, {}
+    answers = {}
     reset_launches()
-    for label, which, kw in MAIN_REQUESTS:
-        before = dict(LAUNCHES)
-        t = time.perf_counter()
-        results[label] = smt.sparse_matrix_multiply(*ops[which], **kw)
-        torch.cuda.synchronize()
-        seconds[label] = time.perf_counter() - t
-        routes[label] = smt.get_last_route()
-        per_request[label] = {k: LAUNCHES[k] - before[k] for k in KERNELS}
+    per_request, seconds = counted(
+        [(label, request(*ops[which], **kw)) for label, which, kw in MAIN_REQUESTS], answers)
     launches_main = dict(LAUNCHES)
+    results, routes = split_answers(answers)
+    del answers
 
     for label, route in routes.items():
         require(route == "dense", f"{label}: route {route!r} != 'dense'")
@@ -569,17 +899,14 @@ def main() -> int:
     # 8. BSR path: the requests through the public entry point, counted
     t0 = time.perf_counter()
     bsr_b = {"b": b_bsp, "bu": bu_sp}
-    bsr_results, bsr_routes, bsr_seconds, bsr_per_request = {}, {}, {}, {}
+    answers = {}
     reset_launches()
-    for label, which, kw, _ in BSR_REQUESTS:
-        before = dict(LAUNCHES)
-        t = time.perf_counter()
-        bsr_results[label] = smt.sparse_matrix_multiply(a_bsp, bsr_b[which], **kw)
-        torch.cuda.synchronize()
-        bsr_seconds[label] = time.perf_counter() - t
-        bsr_routes[label] = smt.get_last_route()
-        bsr_per_request[label] = {k: LAUNCHES[k] - before[k] for k in KERNELS}
+    bsr_per_request, bsr_seconds = counted(
+        [(label, request(a_bsp, bsr_b[which], **kw)) for label, which, kw, _ in BSR_REQUESTS],
+        answers)
     launches_bsr = dict(LAUNCHES)
+    bsr_results, bsr_routes = split_answers(answers)
+    del answers
 
     for label, _, _, expected in BSR_REQUESTS:
         require(bsr_routes[label] == "bsr", f"{label}: route {bsr_routes[label]!r} != 'bsr'")
@@ -630,14 +957,31 @@ def main() -> int:
               for label, t in e2e.items()))
     print(f"[bsr-stages] bsr_x_bsr_8192 sparse_matrix_multiply ({stage_extraction} extraction), "
           f"host clock, min of {PATH_RUNS + 1}: " + json.dumps(bsr_stages), flush=True)
+    del a_bsp, b_bsp, bu_sp, bsr_b
+
+    # 10. the fused conversions K7/K8 through their own entry points, counted
+    t0 = time.perf_counter()
+    fused_report, fused_per_call, launches_fused, line = fused_kernels(a_sp, b_sp, sa_sp, sb_sp)
+    report.update(fused_report)
+    phase("fused-kernels", t0, line)
+
+    # 11. the triple product H Q H^T (H the headline A), counted, and its times
+    q_sp = sp.random(N, N, density=DENSITY, format="csr", random_state=TRIPLE_Q_SEED)
+    triple_per_request, launches_triple = triple_phase(a_sp, q_sp, name, smi)
+    del q_sp
+
+    # 12. the inversion workflow at n_obs << n_state, counted, and its times
+    inv_per_request, launches_inv = inversion_phase(name, smi)
 
     kernels = []
-    by_request = {**per_request, **bsr_per_request}
+    by_request = {**per_request, **bsr_per_request, **fused_per_call, **triple_per_request,
+                  **inv_per_request}
+    path_launches = (launches_main, launches_bsr, launches_fused, launches_triple, launches_inv)
     for key, (kname, source, replaces) in KERNELS.items():
         r = report[key]
         kernels.append({
             "name": kname, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches_main[key] + launches_bsr[key],
+            "launches": sum(counts[key] for counts in path_launches),
             "launches_by_request": {label: n[key] for label, n in by_request.items()},
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
         })

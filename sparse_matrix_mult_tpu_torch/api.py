@@ -4,10 +4,12 @@ device-resident ``multiply``.
 Counterpart of :mod:`sparse_matrix_mult_tpu.api`, for the slice the port
 carries so far: validation, the empty-operand path, the host short-circuit
 (native Gustavson below ``Config.host_compute_limit`` partial products), the
-dense route with device or host extraction, and its BSR rung for
-block-sparse operands (K5/K6).  Every other rung of the JAX router raises
-:class:`NotImplementedError` naming its ``ROADMAP.md`` item, rather than
-sending the problem down the dense route under another structure contract.
+dense route with device or host extraction, its BSR rung for block-sparse
+operands (K5/K6), and the triple product ``H Q H^T`` (route ``"triple"``,
+and the device-resident :func:`triple_product`).  Every other rung of the
+JAX router raises :class:`NotImplementedError` naming its ``ROADMAP.md``
+item, rather than sending the problem down the dense route under another
+structure contract.
 
 The scipy-in/scipy-out entry point computes on ``device`` (default
 ``Config.device``, ``"cuda"``); it never probes for a GPU.
@@ -28,15 +30,17 @@ from .ops.dense_path import dense_path_fits, spgemm_dense_out
 from .ops.kernels.bsr_spgemm import (
     KERNEL_BLOCK, bsr_bsr_matmul_dense, bsr_matmul_dense, bsr_pair_plan)
 from .ops.matmul import resolve_precision
+from .ops.triple_product import triple_product_dense
 from .types import CSRMatrix, bucket_capacity, from_scipy, to_scipy
 from .types_bsr import _tobsr_padded, bsr_from_scipy
 from .utils.native import expansion_size, spgemm_host
 from .utils.transfer import fetch_dense_to_csr, fetch_np, fine_capacity
 
-__all__ = ["sparse_matrix_multiply", "multiply", "get_last_route", "block_occupancy"]
+__all__ = ["sparse_matrix_multiply", "multiply", "triple_product", "get_last_route",
+           "block_occupancy"]
 
 # Route of the last sparse_matrix_multiply on this thread: "dense", "bsr",
-# "host" or "empty".
+# "triple", "host" or "empty".
 _ROUTE_STATE = threading.local()
 
 
@@ -246,6 +250,34 @@ def _sparse_out_host(a_sp, b_sp, symmetric: bool, esc_limit: int, device):
     raise _not_ported("The row-chunked ESC route (esc_chunks)", "Queue 1 items 3-5")
 
 
+def _triple_product_host(a_sp, b_sp, compute_full_matrix: int, device) -> np.ndarray:
+    """Dense ``A . B . A^T`` of scipy operands, as an f64 ndarray.
+
+    Small products (twice the expansion of ``A . B`` at or below
+    ``host_compute_limit``) are multiplied on the host in f64: below the
+    device dispatch floor, and where FAST's f32 accumulation would risk the
+    oracle's rtol = 1e-5 on mixed-sign operands.  The rest go through
+    :func:`triple_product_dense` on ``device`` (route ``"triple"``).
+    """
+    if a_sp.shape[1] != b_sp.shape[1]:
+        raise ValueError(
+            "Triple product requires B.cols == A.cols so that (A.B).A^T "
+            "is well defined."
+        )
+    expand = 2 * expansion_size(a_sp.indices, a_sp.nnz, b_sp.indptr)
+    if expand <= get_config().host_compute_limit:
+        c = ((a_sp @ b_sp) @ a_sp.T).toarray()
+        upper = np.triu(c)
+        _set_route("host")
+        return upper + np.triu(c, 1).T if compute_full_matrix else upper
+    dtype, _ = _upload_dtype(a_sp, b_sp, device)
+    h = from_scipy(a_sp, dtype=dtype, device=device)
+    q = from_scipy(b_sp, dtype=dtype, device=device)
+    result = fetch_np(triple_product_dense(h, q, compute_full_matrix)).astype(np.float64)
+    _set_route("triple")
+    return result
+
+
 def _zero_notice(result):
     if not get_config().zero_result_notice:
         return
@@ -272,7 +304,9 @@ def sparse_matrix_multiply(
       ``symmetric=True``);
     * ``output_format='dense'``  -> numpy ndarray (upper triangle only when
       ``symmetric=True``);
-    * ``use_triple_product=True`` -> not ported yet (raises).
+    * ``use_triple_product=True`` -> numpy ndarray ``A . B . A^T`` (upper
+      triangle, mirrored into the lower with ``compute_full_matrix=1``;
+      ``output_format`` is ignored).
 
     ``device`` defaults to ``Config.device``.  ``imem_size`` (1..10, default
     5) scales the partial-product budget the router compares the expansion
@@ -313,8 +347,8 @@ def sparse_matrix_multiply(
         raise ValueError("For symmetric output, the resulting matrix must be square.")
 
     if use_triple_product:
-        raise _not_ported("The triple product (use_triple_product=True)", "Queue 1 item 7")
-    if output_format == "sparse":
+        result = _triple_product_host(matrix_a, matrix_b, compute_full_matrix, device)
+    elif output_format == "sparse":
         result = _sparse_out_host(matrix_a, matrix_b, symmetric, esc_limit, device)
     elif output_format == "dense":
         cfg = get_config()
@@ -380,3 +414,8 @@ def multiply(
         c = spgemm_dense_out(a, b, symmetric=symmetric, precision=precision)
         return _extract_csr(c, out_capacity, symmetric=symmetric)
     raise ValueError("Invalid output_format. Choose 'sparse' or 'dense'.")
+
+
+def triple_product(h: CSRMatrix, q: CSRMatrix, compute_full_matrix: int = 0, precision=None):
+    """Device-resident fused ``H . Q . H^T`` (see :mod:`.ops.triple_product`)."""
+    return triple_product_dense(h, q, compute_full_matrix, precision=precision)

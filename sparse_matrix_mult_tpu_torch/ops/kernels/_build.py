@@ -38,6 +38,7 @@ NVCC_FLAGS = [
 LAUNCHES = {
     "matmul_triu": 0, "csr_to_dense": 0, "dense_to_csr": 0, "dense_to_csr_triu": 0,
     "bsr_matmul_dense": 0, "bsr_bsr_matmul_dense": 0,
+    "dense_to_csr_fused": 0, "csr_to_dense_fused": 0,
 }
 
 _LIB: ctypes.CDLL | None = None
@@ -56,6 +57,10 @@ _SIGNATURES = {
     "smm_dense_fill_f64": [_P, _I64, _I64, _INT, _P, _I64, _P, _P, _P],
     "smm_bsr_matmul_dense_f32": [_P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _P],
     "smm_bsr_bsr_matmul_dense_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _P],
+    "smm_dense_to_csr_fused_f32": [_P, _I64, _I64, _I64, _I64, _P, _P, _P, _P, _P],
+    "smm_dense_to_csr_fused_f64": [_P, _I64, _I64, _I64, _I64, _P, _P, _P, _P, _P],
+    "smm_csr_to_dense_fused_f32": [_P, _P, _P, _P, _I64, _I64, _I64, _P],
+    "smm_csr_to_dense_fused_f64": [_P, _P, _P, _P, _I64, _I64, _I64, _P],
 }
 
 

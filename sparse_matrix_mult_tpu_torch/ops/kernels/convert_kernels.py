@@ -1,11 +1,19 @@
-"""CSR <-> dense conversion kernels (``csrc/convert.cu``) and their plain
-PyTorch versions.
+"""CSR <-> dense conversion kernels (``csrc/convert.cu``,
+``csrc/convert_fused.cu``) and their plain PyTorch versions.
 
 * K3 :func:`csr_to_dense` -- replaces
   ``sparse_matrix_mult_tpu/ops/pallas/convert_kernels.py::_distribute_kernel``.
 * K4 :func:`dense_to_csr` and K2 :func:`dense_to_csr` with ``triu=True`` --
   one templated kernel pair replacing ``_concentrate_kernel`` and
   ``_concentrate_payload_kernel`` (the staircase extraction).
+* K7 :func:`dense_to_csr_fused` -- replaces ``_fused_extract_kernel``: K4's
+  output in one launch (count, decoupled look-back scan and fill) over
+  flat-rows of ``lane`` elements.
+* K8 :func:`csr_to_dense_fused` -- replaces ``_fused_densify_kernel``: K3's
+  output in one launch, one flat-row of ``lane`` elements per CTA.
+
+The fused pair is on no production route, as in the JAX package: the routes
+keep K3 and K4.  Their results do not depend on ``lane``.
 
 Output contract of the extraction, the same as the Pallas pipeline's:
 ``indices``/``values`` of length ``capacity``, entries sorted by (row, col),
@@ -16,18 +24,27 @@ kept entry, and ``indptr`` counting kept entries only (clamped at
 
 from __future__ import annotations
 
+import operator
+
 import torch
 
 from . import _build
 
 __all__ = [
+    "LANE",
     "csr_to_dense",
     "csr_to_dense_plain",
+    "csr_to_dense_fused",
+    "csr_to_dense_fused_plain",
     "dense_to_csr",
     "dense_to_csr_plain",
+    "dense_to_csr_fused",
+    "dense_to_csr_fused_plain",
 ]
 
 _FLOATS = {torch.float32: "f32", torch.float64: "f64"}
+
+LANE = 8192  # default flat-row length of the fused conversions (the JAX default)
 
 
 def _check_csr(indptr, indices, values, shape):
@@ -96,17 +113,21 @@ def dense_to_csr_plain(c: torch.Tensor, capacity: int, triu: bool = False):
     return indptr, indices, values
 
 
+def _check_dense(c: torch.Tensor, name: str) -> None:
+    if c.ndim != 2:
+        raise ValueError(f"{name} takes a 2-D matrix")
+    if c.dtype not in _FLOATS:
+        raise TypeError(f"{name} takes float32 or float64, got {c.dtype}")
+    if not c.is_contiguous():
+        raise ValueError(f"{name} takes a contiguous matrix")
+
+
 def dense_to_csr(c: torch.Tensor, capacity: int, triu: bool = False):
     """Packed ``(indptr, indices, values)`` of the nonzeros of ``c`` (K4), or
     of its upper triangle with ``triu=True`` (K2)."""
-    if c.ndim != 2:
-        raise ValueError("dense_to_csr takes a 2-D matrix")
-    if triu and c.shape[0] != c.shape[1]:
+    if c.ndim == 2 and triu and c.shape[0] != c.shape[1]:
         raise ValueError("triu extraction requires a square matrix")
-    if c.dtype not in _FLOATS:
-        raise TypeError(f"dense_to_csr takes float32 or float64, got {c.dtype}")
-    if not c.is_contiguous():
-        raise ValueError("dense_to_csr takes a contiguous matrix")
+    _check_dense(c, "dense_to_csr")
     capacity = int(capacity)
     if not _build.is_cuda(c):
         return dense_to_csr_plain(c, capacity, triu)
@@ -132,3 +153,76 @@ def dense_to_csr(c: torch.Tensor, capacity: int, triu: bool = False):
     _build.LAUNCHES[name] += 1
     _build.check(code, name)
     return indptr, indices, values
+
+
+def _check_lane(lane) -> int:
+    lane = operator.index(lane)
+    if lane < 32 or lane & (lane - 1):
+        raise ValueError(f"lane must be a power of two >= 32, got {lane}")
+    return lane
+
+
+def dense_to_csr_fused_plain(c: torch.Tensor, capacity: int):
+    """K7's plain version: K4's, since the outputs are identical."""
+    return dense_to_csr_plain(c, capacity)
+
+
+def dense_to_csr_fused(c: torch.Tensor, capacity: int, lane: int = LANE):
+    """Packed ``(indptr, indices, values)`` of the nonzeros of ``c`` in one
+    launch (K7), over flat-rows of ``lane`` elements (a power of two >= 32).
+
+    The output is K4's (:func:`dense_to_csr`), truncation at ``capacity``
+    included; it does not depend on ``lane``.
+    """
+    _check_dense(c, "dense_to_csr_fused")
+    lane = _check_lane(lane)
+    capacity = int(capacity)
+    if not 0 <= capacity < 2**31:
+        raise ValueError(f"capacity must lie in [0, 2^31), got {capacity}")
+    if not _build.is_cuda(c):
+        return dense_to_csr_fused_plain(c, capacity)
+    m, n = c.shape
+    indptr = torch.empty(m + 1, dtype=torch.int32, device=c.device)
+    indices = torch.empty(capacity, dtype=torch.int32, device=c.device)
+    values = torch.empty(capacity, dtype=c.dtype, device=c.device)
+    if m * n == 0:  # no entries: nothing to launch
+        return indptr.zero_(), indices.zero_(), values.zero_()
+    n_tiles = -(-m * n // lane)
+    # One status word per flat-row, then the ticket counter; zero before every launch.
+    status = torch.zeros(n_tiles + 1, dtype=torch.int64, device=c.device)
+    code = getattr(_build.load(), f"smm_dense_to_csr_fused_{_FLOATS[c.dtype]}")(
+        c.data_ptr(), m, n, lane, capacity, status.data_ptr(), indptr.data_ptr(),
+        indices.data_ptr(), values.data_ptr(), _build.stream_ptr(c.device),
+    )
+    _build.LAUNCHES["dense_to_csr_fused"] += 1
+    _build.check(code, "dense_to_csr_fused")
+    return indptr, indices, values
+
+
+def csr_to_dense_fused_plain(indptr, indices, values, shape) -> torch.Tensor:
+    """K8's plain version: K3's, since the outputs are identical."""
+    return csr_to_dense_plain(indptr, indices, values, shape)
+
+
+def csr_to_dense_fused(indptr, indices, values, shape, lane: int = LANE) -> torch.Tensor:
+    """Dense (m, n) matrix of sorted, duplicate-free padded CSR in one launch
+    (K8), one flat-row of ``lane`` elements (a power of two >= 32) per CTA.
+
+    The output is K3's (:func:`csr_to_dense`); entries past ``indptr[-1]``
+    are ignored.
+    """
+    m, n = int(shape[0]), int(shape[1])
+    _check_csr(indptr, indices, values, (m, n))
+    lane = _check_lane(lane)
+    if not _build.is_cuda(indptr, indices, values):
+        return csr_to_dense_fused_plain(indptr, indices, values, (m, n))
+    dense = torch.empty((m, n), dtype=values.dtype, device=values.device)
+    if m * n == 0:
+        return dense
+    code = getattr(_build.load(), f"smm_csr_to_dense_fused_{_FLOATS[values.dtype]}")(
+        indptr.data_ptr(), indices.data_ptr(), values.data_ptr(), dense.data_ptr(),
+        m, n, lane, _build.stream_ptr(values.device),
+    )
+    _build.LAUNCHES["csr_to_dense_fused"] += 1
+    _build.check(code, "csr_to_dense_fused")
+    return dense

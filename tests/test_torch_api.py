@@ -165,8 +165,6 @@ def test_imem_size_scales_the_esc_budget(config):
 
 def test_unported_rungs_raise(operands, config):
     a, b, _ = operands
-    with pytest.raises(NotImplementedError, match="triple product"):
-        tsmm.sparse_matrix_multiply(a, b, use_triple_product=True, device="cpu")
     # ESC: an expansion above the host limit, within the binned budget and
     # under a quarter of the panel.
     sparse_a = sp.random(2000, 2000, density=0.01, format="csr", random_state=11)

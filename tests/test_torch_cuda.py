@@ -327,3 +327,181 @@ def test_bsr_route_on_the_card(cuda, kind, key, output_format):
     got = got.toarray() if output_format == "sparse" else got
     ref = (a @ b).toarray()
     assert np.all(np.abs(got - ref) <= 1e-5 * (abs(a) @ abs(b)).toarray())
+
+
+# K7 and K8, the fused conversions: (rows, cols, density, lane), the cases of
+# test_pallas_convert.py, then many flat-rows (a long look-back chain), tiles
+# of 64 KB and 128 KB of shared memory, and flat-rows longer than the tile.
+FUSED_CASES = [
+    (16, 300, 0.2, 256), (37, 1000, 0.1, 512), (8, 128, 0.0, 128), (100, 513, 0.5, 256),
+    (5, 64, 1.0, 128), (200, 200, 0.05, 256), (63, 190, 0.3, 128),
+    (1000, 1000, 0.3, 32), (700, 900, 0.4, 16384), (300, 1000, 0.2, 1 << 16),
+    (1, 1, 1.0, 8192),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("m,n,d,lane", FUSED_CASES)
+def test_dense_to_csr_fused_kernel(cuda, m, n, d, lane, dtype):
+    """K7 against its plain version and K4, bit for bit: at a capacity with
+    room to pad, at capacity < nnz and at capacity 0."""
+    _, dense = _random(m, n, d, 11, dtype, cuda)
+    dense[0, -1] = -0.0  # a negative zero is a zero
+    nnz = int(torch.count_nonzero(dense))
+    for cap in (tsmm.bucket_capacity(nnz), max(nnz // 2, 1), 0):
+        before = LAUNCHES["dense_to_csr_fused"]
+        got = ck.dense_to_csr_fused(dense, cap, lane=lane)
+        torch.cuda.synchronize()
+        assert LAUNCHES["dense_to_csr_fused"] == before + 1
+        for g, p, k in zip(got, ck.dense_to_csr_fused_plain(dense, cap), ck.dense_to_csr(dense, cap)):
+            assert torch.equal(g, p) and torch.equal(g, k)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("m,n,d,lane", FUSED_CASES)
+def test_csr_to_dense_fused_kernel(cuda, m, n, d, lane, dtype):
+    """K8 against its plain version and K3, bit for bit; the padding past
+    indptr[-1] holds garbage that must be ignored."""
+    a = sp.random(m, n, density=d, format="csr", random_state=12)
+    c = tsmm.from_scipy(a, dtype=dtype, device=cuda)
+    values = c.values.clone()
+    values[a.nnz:] = float("nan")
+    before = LAUNCHES["csr_to_dense_fused"]
+    got = ck.csr_to_dense_fused(c.indptr, c.indices, values, c.shape, lane=lane)
+    torch.cuda.synchronize()
+    assert LAUNCHES["csr_to_dense_fused"] == before + 1
+    assert torch.equal(got, ck.csr_to_dense_fused_plain(c.indptr, c.indices, values, c.shape))
+    assert torch.equal(got, ck.csr_to_dense(c.indptr, c.indices, c.values, c.shape))
+
+
+def test_fused_kernels_do_not_depend_on_the_lane(cuda):
+    _, dense = _random(1200, 1300, 0.3, 13, torch.float32, cuda)
+    cap = tsmm.bucket_capacity(int(torch.count_nonzero(dense)))
+    outs = [ck.dense_to_csr_fused(dense, cap, lane=lane) for lane in (32, 2048, 8192, 16384, 1 << 17)]
+    for out in outs[1:]:
+        for g, w in zip(out, outs[0]):
+            assert torch.equal(g, w)
+    for lane in (32, 8192, 1 << 17):
+        assert torch.equal(ck.csr_to_dense_fused(*outs[0], dense.shape, lane=lane), dense)
+
+
+def test_fused_kernels_reject_bad_inputs(cuda):
+    dense = torch.ones((4, 4), device=cuda)
+    with pytest.raises(ValueError):
+        ck.dense_to_csr_fused(dense, 16, lane=48)
+    with pytest.raises(ValueError):  # not contiguous
+        ck.dense_to_csr_fused(dense.T[:, :3], 16)
+    with pytest.raises(ValueError):  # one array on the CPU
+        ck.csr_to_dense_fused(torch.zeros(5, dtype=torch.int32), torch.zeros(4, dtype=torch.int32,
+                              device=cuda), torch.zeros(4, device=cuda), (4, 4))
+
+
+def _f64_triple(h, q, device):
+    h64 = torch.from_numpy(h.toarray()).to(device)
+    q64 = torch.from_numpy(q.toarray()).to(device)
+    c = h64 @ q64 @ h64.T
+    bound = 1e-5 * (h64.abs() @ q64.abs() @ h64.abs().T)
+    return c, bound
+
+
+@pytest.mark.parametrize("compute_full_matrix", [0, 1])
+@pytest.mark.parametrize("precision", ["fast", "split", "strict"])
+def test_triple_product_on_the_card(cuda, precision, compute_full_matrix):
+    """FAST (K3 twice, H.Q, K1 transpose_b: m^2 > 2^20), SPLIT and STRICT
+    against the f64 product on the card, within 1e-5 * (|H| |Q| |H|^T)."""
+    h = sp.random(1100, 900, density=0.1, format="csr", random_state=14)
+    q = sp.random(900, 900, density=0.1, format="csr", random_state=15)
+    h.data = 2.0 * h.data - 1.0
+    th, tq = tsmm.from_scipy(h, device=cuda), tsmm.from_scipy(q, device=cuda)
+    before = dict(LAUNCHES)
+    got = tsmm.triple_product(th, tq, compute_full_matrix, precision=precision)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float64 and got.shape == (1100, 1100)
+    if precision == "fast":
+        assert LAUNCHES["csr_to_dense"] == before["csr_to_dense"] + 2
+        assert LAUNCHES["matmul_triu"] == before["matmul_triu"] + 1
+    c, bound = _f64_triple(h, q, cuda)
+    want = torch.triu(c)
+    if compute_full_matrix:
+        want = want + torch.triu(c, 1).T
+        bound = torch.triu(bound) + torch.triu(bound, 1).T
+        assert torch.equal(got, got.T)
+    else:
+        assert not torch.tril(got, -1).any()
+    assert bool(((got - want).abs() <= bound).all())
+
+
+def test_triple_route_on_the_card(cuda):
+    """sparse_matrix_multiply(use_triple_product=True) takes route "triple"
+    through K3 twice and K1, against scipy at the reference tolerance."""
+    h = sp.random(1500, 1200, density=0.05, format="csr", random_state=16)
+    q = sp.random(1200, 1200, density=0.05, format="csr", random_state=17)
+    before = dict(LAUNCHES)
+    got = tsmm.sparse_matrix_multiply(h, q, use_triple_product=True, compute_full_matrix=1,
+                                      device="cuda")
+    assert tsmm.get_last_route() == "triple"
+    assert LAUNCHES["csr_to_dense"] == before["csr_to_dense"] + 2
+    assert LAUNCHES["matmul_triu"] == before["matmul_triu"] + 1
+    c = (h @ q @ h.T).toarray()
+    np.testing.assert_allclose(got, np.triu(c) + np.triu(c, 1).T, rtol=1e-5, atol=1e-8)
+
+
+def test_invert_on_the_card(cuda):
+    """The inversion in float32 on the card (K1 with rectangular operands)
+    against the f64 formulas, within 1e-3 of each result's largest entry."""
+    from sparse_matrix_mult_tpu_torch.models.inversion import invert, posterior_covariance
+
+    rng = np.random.default_rng(18)
+    n_obs, n_state = 1100, 2000
+    h = sp.random(n_obs, n_state, density=0.02, format="csr", random_state=19)
+    a = sp.random(n_state, n_state, density=0.005, format="csr", random_state=20)
+    q = (a + a.T) * 0.5
+    q = (q + sp.diags(1.0 + np.asarray(abs(q).sum(axis=1)).ravel())).tocsr()
+    y, x0, r = rng.standard_normal(n_obs), rng.standard_normal(n_state), 0.5 + rng.random(n_obs)
+    th, tq = tsmm.from_scipy(h, device=cuda), tsmm.from_scipy(q, device=cuda)
+    args = [torch.from_numpy(v).to(cuda) for v in (y, x0, r)]
+    before = LAUNCHES["matmul_triu"]
+    got = invert(th, tq, *args)
+    assert LAUNCHES["matmul_triu"] == before + 1
+    p_full = posterior_covariance(th, tq, args[2])
+    h64 = torch.from_numpy(h.toarray()).to(cuda)
+    q64 = torch.from_numpy(q.toarray()).to(cuda)
+    y64, x064, r64 = (torch.from_numpy(v).to(cuda) for v in (y, x0, r))
+    s = h64 @ q64 @ h64.T + torch.diag(r64)
+    qht = q64 @ h64.T
+    x_post = x064 + qht @ torch.linalg.solve(s, y64 - h64 @ x064)
+    p = q64 - qht @ torch.linalg.solve(s, qht.T)
+    for name, g, w in (("x_post", got.x_post, x_post), ("p_diag", got.p_diag, torch.diagonal(p)),
+                       ("s", got.s, s), ("posterior_covariance", p_full, p)):
+        assert g.dtype == torch.float32, name
+        assert float((g.double() - w).abs().max()) <= 1e-3 * float(w.abs().max()), name
+
+
+def test_cuda_tensors_never_reach_a_plain_version(cuda, monkeypatch):
+    """With every plain version replaced by one that raises, the kernels'
+    entry points and the triple product still run on CUDA tensors, and each
+    launch is counted."""
+    for module in (ck, tm, kb):
+        for name in dir(module):
+            if name.endswith("_plain"):
+                monkeypatch.setattr(module, name, _raise_plain(name))
+    _, dense = _random(300, 400, 0.3, 21, torch.float32, cuda)
+    before = dict(LAUNCHES)
+    csr = ck.dense_to_csr_fused(dense, 1 << 16)
+    back = ck.csr_to_dense_fused(*csr, dense.shape)
+    csr4 = ck.dense_to_csr(dense, 1 << 16)
+    ck.csr_to_dense(*csr4, dense.shape)
+    h = tsmm.from_scipy(sp.random(1100, 800, density=0.1, random_state=22), device=cuda)
+    q = tsmm.from_scipy(sp.random(800, 800, density=0.1, random_state=23), device=cuda)
+    tsmm.triple_product(h, q, 1, precision="fast")
+    torch.cuda.synchronize()
+    assert torch.equal(back, dense)
+    for key, n in (("dense_to_csr_fused", 1), ("csr_to_dense_fused", 1), ("dense_to_csr", 1),
+                   ("csr_to_dense", 3), ("matmul_triu", 1)):
+        assert LAUNCHES[key] == before[key] + n, key
+
+
+def _raise_plain(name):
+    def plain(*args, **kwargs):
+        raise AssertionError(f"{name} ran on a CUDA tensor")
+    return plain

@@ -17,6 +17,8 @@ def test_import_leaves_jax_unloaded():
         "import sparse_matrix_mult_tpu_torch.ops.kernels.convert_kernels\n"
         "import sparse_matrix_mult_tpu_torch.ops.kernels.triu_matmul\n"
         "import sparse_matrix_mult_tpu_torch.ops.kernels.bsr_spgemm\n"
+        "import sparse_matrix_mult_tpu_torch.ops.triple_product\n"
+        "import sparse_matrix_mult_tpu_torch.models.inversion\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'sparse_matrix_mult_tpu' or m.startswith('sparse_matrix_mult_tpu.'))\n"
         "assert not bad, bad\n"
