@@ -5,20 +5,38 @@ Run from the repository root:  python3 chip_smoke.py
 
 Phases, one line each:
   1. card    -- device name, nvidia-smi name/power limit, TF32 switched off;
-  2. build   -- nvcc builds csrc/*.cu from the checkout (ptxas report shown);
+  2. build   -- nvcc builds csrc/*.cu from the checkout (ptxas report shown),
+                and K1's HGMMA (tensor-core) and UTMALDG (TMA) instructions
+                are counted in the SASS (cuobjdump -sass);
   3. kernels -- each hand-written kernel against its plain PyTorch version
                 on the card, at the shapes the main path gives it, with both
-                times and the largest difference;
+                times, the largest difference, the kernel's bound (bytes or
+                operations at the card's peak) and the time of one PyTorch
+                call computing the same function (library_ms, a yardstick
+                the port never calls).  K1 in both branches (HIGHEST,
+                split3) and both forms (A B, A B^T), each form bit-identical
+                to the other, each within 1e-5 of (|A| |B|) of its plain
+                version, split3's bits unlike HIGHEST's; K1's two splits
+                and its GEMM alone timed in one window; the bf16 split K1
+                starts with, bit for bit;
+     split3-gate -- K1's branches against the f64 oracle at the three
+                configurations of benchmarks/results_accuracy_tpu.json
+                (split3's error at least twice HIGHEST's, which shows that
+                split3 ran), and whether the split3 gate engages at each;
   4. main    -- the main path: three requests through sparse_matrix_multiply,
                 with the launch counts zeroed just before and read just after:
                 the headline (10,000^2, density 0.1, symmetric=True), a
                 non-symmetric product at 12,288^2, density 0.006 (~36% dense,
                 extracted by K4), and dense output at 10k.  Route "dense",
                 launches per request, and each result against its oracle;
+     fast    -- one counted request multiply(symmetric=True,
+                precision="fast") at the headline: K1's split3 branch
+                through the API, against the f64 oracle;
   5. sibling -- symmetric sparse output at 12,288^2 against scipy;
-  6. timing  -- device-resident multiply() and end-to-end
-                sparse_matrix_multiply at 10k, warm, min of 3, one profiled
-                call (device busy time), and the headline's time per stage;
+  6. timing  -- device-resident multiply() (also with precision="fast") and
+                end-to-end sparse_matrix_multiply at 10k, warm, min of 3, one
+                profiled call (device busy time), and the headline's time
+                per stage;
   7. bsr-kernels -- K5 and K6 against their plain versions at the BSR
                 path's shapes (8192^2, 128^2 blocks, 10% of them occupied):
                 both times, the largest difference, unvisited blocks zero;
@@ -38,25 +56,30 @@ Phases, one line each:
                 three lanes, and CUDA-event times beside K4's and K3's;
  11. triple  -- the triple product H Q H^T through sparse_matrix_multiply
                 (use_triple_product=True, compute_full_matrix 0 and 1; H the
-                headline A, Q 10k^2 d=0.1), counted: route "triple", K3 x2
-                and K1 per request, each result against an f64 oracle on
-                the card; then (triple-timing, triple-stages) end to end and
-                device-resident triple_product, warm, min of 3, K1's
-                transpose_b form against its plain version at the second
-                contraction, and the time per stage;
+                headline A, Q 10k^2 d=0.1), counted: route "triple", K3 x2,
+                split_bf16 x2 and K1 per request, each result against an
+                f64 oracle on the card; then (triple-timing, triple-stages)
+                end to end and device-resident triple_product (also with
+                precision="fast"), warm, min of 3, K1's transpose_b form in
+                both branches against its plain version (as in phase 3) at
+                the second contraction, and the time per stage;
  12. inversion -- invert and posterior_covariance at n_obs 4,096, n_state
-                16,384, counted, against an f64 oracle on the card computed
+                16,384, counted (K3 x4, split_bf16 x2 and K1 per call),
+                against an f64 oracle on the card computed
                 with torch.linalg (x_post, p_diag, S and the posterior
                 covariance within 1e-3 of each one's largest entry), with
-                kappa_2(S); then (inversion-timing) both warm, min of 3.
+                kappa_2(S); then (inversion-timing) both warm, min of 3,
+                and K1's transpose_b form in both branches against its plain
+                version (as in phase 3) at the (T, H) the inversion gives it.
 
-Then a JSON line of the kernels (launches summed over the five counted paths),
+Then a JSON line of the kernels (launches summed over the six counted paths),
 the nvidia-smi line, and last {"ok": true, "device": {...}}.  Any failed
 check exits non-zero; without a CUDA device, or without the package beside
 it, it exits non-zero before any result is printed.
 """
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -68,7 +91,7 @@ import torch
 import sparse_matrix_mult_tpu_torch as smt
 from sparse_matrix_mult_tpu_torch import api
 from sparse_matrix_mult_tpu_torch.ops.convert import csr_to_dense
-from sparse_matrix_mult_tpu_torch.ops.dense_path import spgemm_dense_out
+from sparse_matrix_mult_tpu_torch.ops.dense_path import _split3_within_oracle, spgemm_dense_out
 from sparse_matrix_mult_tpu_torch.ops.kernels import LAUNCHES, _build, reset_launches
 from sparse_matrix_mult_tpu_torch.ops.kernels import bsr_spgemm as kb
 from sparse_matrix_mult_tpu_torch.ops.kernels import convert_kernels as ck
@@ -93,6 +116,19 @@ TRIPLE_Q_SEED = 3  # Q of the triple product: N^2, DENSITY (benchmarks/run.py:27
 INV_OBS, INV_STATE, INV_H_DENSITY, INV_Q_DENSITY, INV_SEED = 4096, 16_384, 0.05, 0.002, 31
 INV_TOL = 1e-3  # |got - ref|_inf <= INV_TOL * |ref|_inf, float32 against the f64 oracle
 RTOL, ATOL = 1e-5, 1e-8  # the reference's oracle tolerance
+# K1's branches; each is held to RTOL * (|A| |B|) of its plain version.  Their
+# own distance (~3e-6 of |A| |B| at 10k) is inside the noise of that
+# comparison (~9e-7), so what shows that split3 ran is that its bits differ
+# from HIGHEST's and that its f64-oracle error is well above HIGHEST's (3b).
+K1_BRANCHES = ("highest", "split3")
+SPLIT3_ERR_RATIO = 2.0  # split3's max rel err vs f64 at least this times HIGHEST's
+# K1's split3 branch against the f64 oracle at the configurations of
+# benchmarks/results_accuracy_tpu.json (seeds 1 and 2, as benchmarks/accuracy.py).
+SPLIT3_CONFIGS = ((500, 0.3), (2000, 0.05), (N, DENSITY))
+# One H100 SXM at 700 W (NVIDIA's data sheet): device memory rate,
+# and the dense peaks of bf16 on the tensor cores and of FP32 on the CUDA cores.
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}
 KERNEL_RUNS = 5
 PATH_RUNS = 3
 DEVICE = "cuda"
@@ -101,6 +137,9 @@ KERNELS = {
     # launch-counter key: (name, source, replaced TPU kernel)
     "matmul_triu": ("K1 matmul_triu", "sparse_matrix_mult_tpu_torch/csrc/triu_matmul.cu",
                     "sparse_matrix_mult_tpu/ops/pallas/triu_matmul.py:58"),
+    "split_bf16": ("split_bf16 (K1's operand split)",
+                   "sparse_matrix_mult_tpu_torch/csrc/triu_matmul.cu",
+                   "sparse_matrix_mult_tpu/ops/pallas/triu_matmul.py:71"),
     "dense_to_csr_triu": ("K2 dense_to_csr_triu", "sparse_matrix_mult_tpu_torch/csrc/convert.cu",
                           "sparse_matrix_mult_tpu/ops/pallas/convert_kernels.py:203"),
     "csr_to_dense": ("K3 csr_to_dense", "sparse_matrix_mult_tpu_torch/csrc/convert.cu",
@@ -119,7 +158,9 @@ KERNELS = {
                            "sparse_matrix_mult_tpu_torch/csrc/convert_fused.cu",
                            "sparse_matrix_mult_tpu/ops/pallas/convert_kernels.py:736"),
 }
-DENSE_PATH_KERNELS = ("matmul_triu", "dense_to_csr_triu", "csr_to_dense", "dense_to_csr")
+DENSE_PATH_KERNELS = ("matmul_triu", "split_bf16", "dense_to_csr_triu", "csr_to_dense",
+                      "dense_to_csr")
+FAST_LABEL = f"multiply_fast_symmetric_{N}"  # the explicit-FAST request (K1's split3 branch)
 
 # The main path's requests: (label, operands, sparse_matrix_multiply keywords).
 MAIN_REQUESTS = (
@@ -161,6 +202,98 @@ def event_ms(fn, runs: int = KERNEL_RUNS) -> float:
         end.synchronize()
         best = min(best, start.elapsed_time(end))
     return best
+
+
+def roofline(nbytes: float, flops: float = 0.0, peak: str = "fp32") -> dict:
+    """The least time the card could take for a function: the larger of its
+    bytes (each input read once, each output written once) over the memory
+    rate and its operations over the peak rate of their type."""
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = flops / PEAK_FLOPS[peak] * 1e3
+    if by_ops > by_bytes:
+        return dict(bound_ms=by_ops, bound_by="operations")
+    return dict(bound_ms=by_bytes, bound_by="bytes")
+
+
+def timing(r: dict) -> str:
+    """A kernel's time beside its bound, share of it, plain and library times."""
+    lib = "none" if r.get("library_ms") is None else f"{r['library_ms']:.3f}"
+    return (f"{r['ms']:.3f} ms (bound {r['bound_ms']:.3f} ms by {r['bound_by']}, "
+            f"{r['bound_ms'] / r['ms']:.1%} of it; plain {r['plain_ms']:.3f}; library {lib})")
+
+
+def fp32_matmul(x, y):
+    with full_fp32():
+        return torch.matmul(x, y)
+
+
+def k1_bound(m: int, n: int, k: int, split3: bool) -> dict:
+    """K1's bound: its bf16 passes (3 or 6) over the upper tile pairs at the
+    bf16 peak, or its f32 operands read and upper tiles written."""
+    nti, ntj = -(-m // tm.TILE), -(-n // tm.TILE)
+    rows = [min(tm.TILE, m - i * tm.TILE) for i in range(nti)]
+    cols = [min(tm.TILE, n - j * tm.TILE) for j in range(ntj)]
+    written = sum(rows[i] * sum(cols[i:]) for i in range(min(nti, ntj)))
+    flops = 2.0 * written * k * (3 if split3 else 6)
+    return dict(roofline(4.0 * (m * k + k * n + written), flops, "bf16"),
+                flops_f32=2.0 * written * k)
+
+
+def k1_against_plain(a, b, transpose_b: bool = False):
+    """K1's two branches on (a, b) against their plain versions on the upper
+    triangle, within RTOL of (|a| |b|); split3's bits must differ from
+    HIGHEST's.  Returns each branch's upper triangle, and its max |kernel -
+    plain| and the largest share of (|a| |b|) that reaches."""
+    unit = torch.triu(fp32_matmul(a.abs(), (b.T if transpose_b else b).abs())).clamp_min(1e-30)
+    got, errs = {}, {}
+    for branch in K1_BRANCHES:
+        split3 = branch == "split3"
+        c = torch.triu(tm.matmul_triu(a, b, transpose_b, split3))
+        err = (c - torch.triu(tm.matmul_triu_plain(a, b, transpose_b, split3))).abs()
+        require(bool((err <= RTOL * unit).all()),
+                f"K1 {branch} {tuple(a.shape)}x{tuple(b.shape)} transpose_b={transpose_b}: "
+                f"outside {RTOL} of |A||B| against plain")
+        got[branch] = c
+        errs[branch] = dict(max_abs_err=float(err.max()), max_err_of_unit=float((err / unit).max()))
+        del err
+    require(not torch.equal(got["highest"], got["split3"]), "K1's split3 gave HIGHEST's bits")
+    return got, errs
+
+
+def k1_timed(a, b, transpose_b: bool, split3: bool, library_ms: float, m: int, n: int,
+             k: int) -> dict:
+    """K1's and its plain version's CUDA-event times, beside its bound and
+    the library call's time."""
+    return dict(ms=event_ms(lambda: tm.matmul_triu(a, b, transpose_b, split3)),
+                plain_ms=event_ms(lambda: tm.matmul_triu_plain(a, b, transpose_b, split3)),
+                library_ms=library_ms, **k1_bound(m, n, k, split3))
+
+
+def csr_bytes(rows: int, nnz: int, elt: int = 4) -> int:
+    """Bytes of a CSR matrix's indptr, and indices and values of ``nnz`` entries."""
+    return 4 * (rows + 1) + (4 + elt) * nnz
+
+
+def sparse_csr(ptr, idx, val, shape):
+    """The torch.sparse CSR tensor of a padded CSR triple (a view, no copy)."""
+    nnz = int(ptr[-1])
+    return torch.sparse_csr_tensor(ptr, idx[:nnz], val[:nnz], size=tuple(shape))
+
+
+def sass_counts(path: str):
+    """Counts of tensor-core (HGMMA) and TMA (UTMALDG) instructions in each
+    compiled kernel of the library that has any, or None without cuobjdump."""
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    if not os.path.exists(tool):
+        return None
+    sass = subprocess.run([tool, "-sass", path], capture_output=True, text=True,
+                          check=True).stdout
+    counts = {}
+    for section in sass.split("Function : ")[1:]:
+        found = {op: section.count(op) for op in ("HGMMA", "UTMALDG")}
+        if any(found.values()):
+            counts[section.split(None, 1)[0]] = found
+    return counts
 
 
 def wall_s(fn, runs: int = PATH_RUNS) -> float:
@@ -234,7 +367,11 @@ def compare_extract(c: torch.Tensor, triu: bool):
     err = float((got[2] - ref[2]).abs().max())
     ms = event_ms(lambda: ck.dense_to_csr(c, cap, triu=triu))
     plain_ms = event_ms(lambda: ck.dense_to_csr_plain(c, cap, triu=triu))
-    return dict(ms=ms, plain_ms=plain_ms, nnz=nnz, max_abs_err=err)
+    lib = event_ms(lambda: (torch.triu(c) if triu else c).to_sparse_csr())
+    m, n = c.shape
+    read = m * (m + 1) // 2 if triu else m * n  # K2 reads the upper triangle only
+    return dict(ms=ms, plain_ms=plain_ms, nnz=nnz, max_abs_err=err, library_ms=lib,
+                **roofline(read * c.element_size() + csr_bytes(m, cap, c.element_size())))
 
 
 def device_busy_s(fn):
@@ -362,10 +499,14 @@ def bsr_kernels(a_sp, b_sp, bu_sp) -> dict:
     require(bool((err <= bound).all()), "K6 outside 1e-5 of |A||B| against plain")
     visited = mask.repeat_interleave(bsz, 0).repeat_interleave(bsz, 1)[: a.shape[0], : b.shape[1]]
     require(bool((got[~visited] == 0).all()), "K6 wrote a block no pair visits")
+    block_bytes = 4 * bsz * bsz
     out["bsr_bsr_matmul_dense"] = dict(
         max_abs_err=float(err.max()),
         ms=event_ms(lambda: kb.bsr_bsr_matmul_dense(a, b, *tables, mask)),
         plain_ms=event_ms(lambda: kb.bsr_bsr_matmul_dense_plain(a, b, *tables, mask)),
+        library_ms=None,  # PyTorch multiplies no two BSR matrices in one call
+        **roofline(block_bytes * (int(a.nblocks) + int(b.nblocks)) + 4 * a.shape[0] * b.shape[1],
+                   2.0 * n * bsz**3),
         n_pairs=n, n_a_blocks=plan["n_a_blocks"], visited_blocks=int(plan["mask"].sum()),
         unvisited_zero=True)
     del got, plain, bound, err, visited
@@ -380,11 +521,16 @@ def bsr_kernels(a_sp, b_sp, bu_sp) -> dict:
     require(bool((err <= bound).all()), "K5 outside 1e-5 of |A||B| against plain")
     empty = (a.indptr[1:] == a.indptr[:-1]).repeat_interleave(bsz)[: a.shape[0]]
     require(bool((got[empty] == 0).all()), "K5 left a row of an empty block-row non-zero")
+    nb = int(a.nblocks)
+    a_lib = torch.sparse_bsr_tensor(a.indptr, a.indices[:nb], a.blocks[:nb], size=a.shape)
     out["bsr_matmul_dense"] = dict(
         max_abs_err=float(err.max()),
         ms=event_ms(lambda: kb.bsr_matmul_dense(a, bud)),
         plain_ms=event_ms(lambda: kb.bsr_matmul_dense_plain(a, bud)),
-        n_a_blocks=int(a.nblocks), empty_block_rows=int(empty.sum()) // bsz)
+        library_ms=event_ms(lambda: torch.matmul(a_lib, bud)),
+        **roofline(block_bytes * nb + 4 * (bud.numel() + a.shape[0] * bud.shape[1]),
+                   2.0 * nb * bsz * bsz * bud.shape[1]),
+        n_a_blocks=nb, empty_block_rows=int(empty.sum()) // bsz)
     return out
 
 
@@ -501,26 +647,60 @@ def fused_kernels(a_sp, b_sp, sa_sp, sb_sp):
             lambda: ck.dense_to_csr_fused(c_sib, cap_sib, lane=lane))
     report = {
         # Bit for bit against the plain versions, checked above.
-        "dense_to_csr_fused": dict(max_abs_err=0.0, ms=times["k7_sib"],
-                                   plain_ms=times["k7_sib_plain"]),
-        "csr_to_dense_fused": dict(max_abs_err=0.0, ms=times["k8_a"],
-                                   plain_ms=times["k8_a_plain"]),
+        "dense_to_csr_fused": dict(
+            max_abs_err=0.0, ms=times["k7_sib"], plain_ms=times["k7_sib_plain"],
+            library_ms=event_ms(lambda: c_sib.to_sparse_csr()),
+            **roofline(4 * c_sib.numel() + csr_bytes(SIB_N, cap_sib))),
+        "csr_to_dense_fused": dict(
+            max_abs_err=0.0, ms=times["k8_a"], plain_ms=times["k8_a_plain"],
+            library_ms=event_ms(lambda: sparse_csr(*a_csr, a.shape).to_dense()),
+            **roofline(csr_bytes(N, a_sp.nnz) + 4 * N * N)),
     }
     t = times
     line = " | ".join([
-        f"K7 {SIB_N}^2 (nnz {nnz_sib}) {t['k7_sib']:.3f} ms (plain {t['k7_sib_plain']:.3f}, "
-        f"K4 {t['k4_sib']:.3f}); lanes " + ", ".join(
+        f"K7 {SIB_N}^2 (nnz {nnz_sib}) {timing(report['dense_to_csr_fused'])}, K4 "
+        f"{t['k4_sib']:.3f}; lanes " + ", ".join(
             f"{lane}: {t[f'k7_sib_lane_{lane}']:.3f} ms" for lane in FUSED_LANES)
         + " (identical outputs)",
         f"K7 {N}^2 full product (nnz {nnz_head}) {t['k7_head']:.3f} ms "
         f"(plain {t['k7_head_plain']:.3f}, K4 {t['k4_head']:.3f})",
-        f"K8 {N}^2 operand A (nnz {a_sp.nnz}) {t['k8_a']:.3f} ms (plain {t['k8_a_plain']:.3f}, "
-        f"K3 {t['k3_a']:.3f})",
+        f"K8 {N}^2 operand A (nnz {a_sp.nnz}) {timing(report['csr_to_dense_fused'])}, K3 "
+        f"{t['k3_a']:.3f}",
         f"K8 {SIB_N}^2 packed sibling {t['k8_sib']:.3f} ms (plain {t['k8_sib_plain']:.3f}, "
         f"K3 {t['k3_sib']:.3f})",
         "bit for bit against plain and K4/K3",
         f"launches by call {per_call}", f"launches {launches}"])
     return report, per_call, launches, line
+
+
+def split3_gate() -> str:
+    """K1's two branches against the f64 oracle at SPLIT3_CONFIGS, beside what
+    the split3 gate decides for each; max rel = max |got - ref| / (|ref| +
+    ATOL) over the upper triangle (benchmarks/accuracy.py's measure).
+    split3's must be at least SPLIT3_ERR_RATIO times HIGHEST's."""
+    lines = []
+    for n, density in SPLIT3_CONFIGS:
+        a_sp, b_sp = operands(n, density, (1, 2))
+        a = smt.from_scipy(a_sp, dtype=torch.float32, device=DEVICE)
+        b = smt.from_scipy(b_sp, dtype=torch.float32, device=DEVICE)
+        ad, bd = csr_to_dense(a), csr_to_dense(b)
+        ref = torch.triu(torch.matmul(csr_on_card(a_sp), csr_on_card(b_sp)))
+        rel = {}
+        for split3 in (False, True):
+            got = torch.triu(tm.matmul_triu(ad, bd, split3=split3)).double()
+            rel[split3] = float(((got - ref).abs() / (ref.abs() + ATOL)).max())
+            del got
+        engaged = _split3_within_oracle(a, b)
+        require(rel[False] <= RTOL, f"K1 HIGHEST at {n}^2 d={density} outside rtol 1e-5")
+        require(rel[True] >= SPLIT3_ERR_RATIO * rel[False],
+                f"K1 split3 at {n}^2 d={density} is as close to f64 as HIGHEST: did it run?")
+        require(not engaged or rel[True] <= RTOL,
+                f"the split3 gate engages at {n}^2 d={density}, where split3 is outside rtol")
+        lines.append(f"{n}^2 d={density}: HIGHEST {rel[False]:.3e}, split3 {rel[True]:.3e} "
+                     f"({rel[True] / RTOL:.2f} rtol); the gate "
+                     + ("engages split3" if engaged else "keeps HIGHEST"))
+        del a, b, ad, bd, ref
+    return " | ".join(lines)
 
 
 def triple_oracle(h_sp, q_sp):
@@ -582,8 +762,9 @@ def triple_phase(h_sp, q_sp, name: str, smi: str):
     for cfm, label in enumerate(labels):
         got, route = results.pop(label), routes[label]
         require(route == "triple", f"{label}: route {route!r} != 'triple'")
-        require(per_call[label]["csr_to_dense"] == 2 and per_call[label]["matmul_triu"] == 1,
-                f"{label}: launches {per_call[label]}, not K3 x2 and K1")
+        require(per_call[label]["csr_to_dense"] == 2 and per_call[label]["matmul_triu"] == 1
+                and per_call[label]["split_bf16"] == 2,
+                f"{label}: launches {per_call[label]}, not K3 x2, split_bf16 x2 and K1")
         got = torch.from_numpy(got).to(DEVICE)
         require(tuple(got.shape) == (N, N) and bool(torch.isfinite(got).all()),
                 f"{label}: not a finite {N}^2 result")
@@ -611,29 +792,32 @@ def triple_phase(h_sp, q_sp, name: str, smi: str):
     h = smt.from_scipy(h_sp, dtype=torch.float32, device=DEVICE)
     q = smt.from_scipy(q_sp, dtype=torch.float32, device=DEVICE)
     dev = {cfm: wall_s(lambda cfm=cfm: smt.triple_product(h, q, cfm)) for cfm in (0, 1)}
-    # K1 in its transpose_b form, at the second contraction (T, H) it is given.
+    dev_fast = wall_s(lambda: smt.triple_product(h, q, 1, precision="fast"))
+    # K1 in its transpose_b form, both branches, at the second contraction
+    # (T, H) it is given.
     hd = csr_to_dense(h, torch.float32)
-    with full_fp32():
-        t_hq = torch.matmul(hd, csr_to_dense(q, torch.float32))
-        bound = torch.triu(RTOL * torch.matmul(t_hq.abs(), hd.abs().T))
-    err = (torch.triu(tm.matmul_triu(t_hq, hd, transpose_b=True))
-           - torch.triu(tm.matmul_triu_plain(t_hq, hd, transpose_b=True))).abs()
-    require(bool((err <= bound).all()), "K1 transpose_b outside 1e-5 of |T||H|^T against plain")
-    k1t = dict(max_abs_err=float(err.max()),
-               ms=event_ms(lambda: tm.matmul_triu(t_hq, hd, transpose_b=True)),
-               plain_ms=event_ms(lambda: tm.matmul_triu_plain(t_hq, hd, transpose_b=True)))
-    del h, q, hd, t_hq, bound, err
+    t_hq = fp32_matmul(hd, csr_to_dense(q, torch.float32))
+    got, errs = k1_against_plain(t_hq, hd, transpose_b=True)
+    del got
+    lib = event_ms(lambda: fp32_matmul(t_hq, hd.T))
+    k1t = {f"{branch}_triple_t_ht_{N}": dict(
+        **errs[branch], **k1_timed(t_hq, hd, True, branch == "split3", lib, N, N, N))
+        for branch in K1_BRANCHES}
+    del h, q, hd, t_hq
     stages = triple_stage_times(h_sp, q_sp)
     phase("triple-timing", t0, f"{name} [{smi}]: host clock, min of {PATH_RUNS}: "
           + " | ".join(f"compute_full_matrix={cfm}: sparse_matrix_multiply end to end "
                        f"{e2e[cfm]:.4f} s, device-resident triple_product {dev[cfm]:.4f} s"
                        for cfm in (0, 1))
-          + f" | K1 transpose_b on (T, H) {k1t['ms']:.3f} ms (plain {k1t['plain_ms']:.3f} ms, "
-          f"CUDA events, min of {KERNEL_RUNS}; max abs err {k1t['max_abs_err']:.2e})")
+          + f" (precision='fast', K1 split3: {dev_fast:.4f} s) | CUDA events, min of "
+          f"{KERNEL_RUNS}: " + " | ".join(
+              f"K1 {form} on (T, H): {timing(r)}; against plain: max abs err "
+              f"{r['max_abs_err']:.2e}, {r['max_err_of_unit']:.2e} of |T||H|^T"
+              for form, r in k1t.items()))
     print(f"[triple-stages] sparse_matrix_multiply(use_triple_product=True, "
           f"compute_full_matrix=1) {N}^2, host clock, min of {PATH_RUNS + 1}: "
           + json.dumps(stages), flush=True)
-    return per_call, launches
+    return per_call, launches, k1t
 
 
 def inversion_problem():
@@ -669,8 +853,9 @@ def inversion_phase(name: str, smi: str):
     ], results)
     launches = dict(LAUNCHES)
     for label in (label_inv, label_cov):
-        require(per_call[label]["matmul_triu"] == 1 and per_call[label]["csr_to_dense"] == 4,
-                f"{label}: launches {per_call[label]}, not K3 x4 and K1")
+        require(per_call[label]["matmul_triu"] == 1 and per_call[label]["csr_to_dense"] == 4
+                and per_call[label]["split_bf16"] == 2,
+                f"{label}: launches {per_call[label]}, not K3 x4, split_bf16 x2 and K1")
 
     h64, q64 = csr_on_card(h_sp), csr_on_card(q_sp)
     y64, x064, r64 = (torch.from_numpy(v).to(DEVICE) for v in (y, x0, r_diag))
@@ -701,9 +886,25 @@ def inversion_phase(name: str, smi: str):
     t0 = time.perf_counter()
     t_inv = wall_s(lambda: invert(h, q, y_t, x0_t, r_t))
     t_cov = wall_s(lambda: posterior_covariance(h, q, r_t))
+    # K1 in its transpose_b form, both branches, at the (T, H) the inversion
+    # gives it: a 4,096^2 output with K = 16,384.
+    hd = csr_to_dense(h, torch.float32)
+    t_hq = fp32_matmul(hd, csr_to_dense(q, torch.float32))
+    got, errs = k1_against_plain(t_hq, hd, transpose_b=True)
+    del got
+    lib = event_ms(lambda: fp32_matmul(t_hq, hd.T))
+    k1i = {f"{branch}_inversion_t_ht_{INV_OBS}x{INV_STATE}": dict(
+        **errs[branch],
+        **k1_timed(t_hq, hd, True, branch == "split3", lib, INV_OBS, INV_OBS, INV_STATE))
+        for branch in K1_BRANCHES}
+    del hd, t_hq
     phase("inversion-timing", t0, f"{name} [{smi}]: device-resident, host clock, min of "
-          f"{PATH_RUNS}: invert {t_inv:.4f} s | posterior_covariance {t_cov:.4f} s")
-    return per_call, launches
+          f"{PATH_RUNS}: invert {t_inv:.4f} s | posterior_covariance {t_cov:.4f} s | CUDA "
+          f"events, min of {KERNEL_RUNS}: " + " | ".join(
+              f"K1 {form} on (T, H): {timing(r)}; against plain: max abs err "
+              f"{r['max_abs_err']:.2e}, {r['max_err_of_unit']:.2e} of |T||H|^T"
+              for form, r in k1i.items()))
+    return per_call, launches, k1i
 
 
 def main() -> int:
@@ -728,7 +929,13 @@ def main() -> int:
     t0 = time.perf_counter()
     path = _build.build(verbose=True)
     _build.load()
-    phase("build", t0, f"nvcc built {path}")
+    sass = sass_counts(path)
+    if sass is not None:
+        k1_sass = [v for k, v in sass.items() if "triu_gemm_kernel" in k]
+        require(len(k1_sass) == 2 and all(v["HGMMA"] > 0 and v["UTMALDG"] > 0 for v in k1_sass),
+                f"K1's SASS lacks HGMMA or UTMALDG: {sass}")
+    phase("build", t0, f"nvcc built {path} | HGMMA/UTMALDG instructions by kernel (cuobjdump "
+          f"-sass): {sass if sass is not None else 'not counted (no cuobjdump)'}")
 
     # 3. kernels against their plain versions, at the main path's shapes
     t0 = time.perf_counter()
@@ -750,21 +957,61 @@ def main() -> int:
         max_abs_err=k3_err,
         ms=event_ms(lambda: ck.csr_to_dense(a.indptr, a.indices, a.values, a.shape)),
         plain_ms=event_ms(lambda: ck.csr_to_dense_plain(a.indptr, a.indices, a.values, a.shape)),
+        library_ms=event_ms(lambda: sparse_csr(a.indptr, a.indices, a.values, a.shape).to_dense()),
+        **roofline(csr_bytes(N, a_sp.nnz) + 4 * N * N),
     )
 
-    c_kernel = torch.triu(tm.matmul_triu(ad, bd))
-    c_plain = torch.triu(tm.matmul_triu_plain(ad, bd))
-    bound = RTOL * torch.triu(torch.matmul(ad.abs(), bd.abs()))
-    err = (c_kernel - c_plain).abs()
-    require(bool((err <= bound).all()), "K1 outside rtol 1e-5 of |A||B| against plain")
-    c_trans = torch.triu(tm.matmul_transpose_triu(ad, bd.T.contiguous()))
-    require(torch.equal(c_trans, c_kernel), "K1 transpose_b differs from K1")
+    # The split K1 starts with: bit for bit against its plain version, both
+    # piece counts, both layouts; timed at the headline's A (HIGHEST, 3 pieces).
+    for pieces in (2, 3):
+        for x, transpose in ((ad, False), (bd, True)):
+            require(torch.equal(tm.split_bf16(x, pieces, transpose=transpose),
+                                tm.split_bf16_plain(x, pieces, transpose=transpose)),
+                    f"split_bf16 ({pieces} pieces, transpose={transpose}) differs from plain")
+    pad_n, pad_k = -(-N // tm.TILE) * tm.TILE, -(-N // tm.KSTEP) * tm.KSTEP
+    report["split_bf16"] = dict(
+        max_abs_err=0.0, ms=event_ms(lambda: tm.split_bf16(ad, 3)),
+        plain_ms=event_ms(lambda: tm.split_bf16_plain(ad, 3)), library_ms=None,
+        ms_transposed=event_ms(lambda: tm.split_bf16(bd, 3, transpose=True)),
+        **roofline(4 * N * N + 2 * 3 * pad_n * pad_k))
+
+    # K1: both branches, both forms, against the plain versions, the FP32
+    # torch.matmul of the same operands beside them.
+    bt = bd.T.contiguous()
+    lib_ms = {"a_b": event_ms(lambda: fp32_matmul(ad, bd)),
+              "a_bt": event_ms(lambda: fp32_matmul(ad, bt.T))}
+    k1_got, k1_err = k1_against_plain(ad, bd)
+    for branch in K1_BRANCHES:
+        c_trans = torch.triu(tm.matmul_transpose_triu(ad, bt, split3=branch == "split3"))
+        require(torch.equal(c_trans, k1_got[branch]), f"K1 {branch} transpose_b differs from K1")
+        del c_trans
+    k1_forms = {f"{branch}_{form}_{N}": dict(
+        **k1_err[branch], **k1_timed(ad, x, transpose_b, branch == "split3", lib_ms[form], N, N, N))
+        for branch in K1_BRANCHES for form, x, transpose_b in (("a_b", bd, False), ("a_bt", bt, True))}
+    del bt
+    # K1's parts in one window: the split of A, that of B (transposed) and
+    # the GEMM alone on those pieces (bit for bit K1's), beside K1 whole.
+    k1_parts = {}
+    for branch in K1_BRANCHES:
+        pieces = 2 if branch == "split3" else 3
+        ap, bp = tm.split_bf16(ad, pieces), tm.split_bf16(bd, pieces, transpose=True)
+        require(torch.equal(torch.triu(tm.matmul_triu_pieces(ap, bp, N, N)), k1_got[branch]),
+                f"K1 {branch}: its GEMM alone differs from K1")
+        k1_parts[branch] = dict(
+            split_a_ms=event_ms(lambda: tm.split_bf16(ad, pieces)),
+            split_bt_ms=event_ms(lambda: tm.split_bf16(bd, pieces, transpose=True)),
+            gemm_ms=event_ms(lambda: tm.matmul_triu_pieces(ap, bp, N, N)),
+            whole_ms=event_ms(lambda: tm.matmul_triu(ad, bd, False, pieces == 2)),
+            gemm_bound_ms=k1_bound(N, N, N, pieces == 2)["bound_ms"])
+        del ap, bp
+    c_kernel = k1_got["highest"]  # K2's input below
+    del k1_got
+    highest = k1_forms[f"highest_a_b_{N}"]
     report["matmul_triu"] = dict(
-        max_abs_err=float(err.max()),
-        ms=event_ms(lambda: tm.matmul_triu(ad, bd)),
-        plain_ms=event_ms(lambda: tm.matmul_triu_plain(ad, bd)),
-    )
-    del c_plain, bound, err, c_trans
+        max_abs_err=k1_err["highest"]["max_abs_err"],
+        max_abs_err_split3=k1_err["split3"]["max_abs_err"],
+        **{key: highest[key] for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
+        forms=k1_forms, parts=k1_parts)
 
     # K2 at the headline's triangle (its main-path shape); K4 on the full 10k
     # product as an extra check.
@@ -780,22 +1027,35 @@ def main() -> int:
     ext_sib_triu = compare_extract(torch.triu(c_sib), triu=True)
     ext_sib_full = compare_extract(c_sib, triu=False)
     del c_sib, sa, sb
+    timing_keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
     report["dense_to_csr_triu"] = dict(
         max_abs_err=max(ext_10k_triu["max_abs_err"], ext_sib_triu["max_abs_err"]),
-        ms=ext_10k_triu["ms"], plain_ms=ext_10k_triu["plain_ms"])
+        **{key: ext_10k_triu[key] for key in timing_keys})
     report["dense_to_csr"] = dict(
         max_abs_err=max(ext_10k_full["max_abs_err"], ext_sib_full["max_abs_err"]),
-        ms=ext_sib_full["ms"], plain_ms=ext_sib_full["plain_ms"])
+        **{key: ext_sib_full[key] for key in timing_keys})
 
     def ext(label, r):
-        return f"{label} {r['ms']:.3f} ms (plain {r['plain_ms']:.3f}, nnz {r['nnz']})"
+        return f"{label} {timing(r)}, nnz {r['nnz']}"
 
     phase("kernels", t0, " | ".join(
-        [f"{KERNELS[k][0]}: {v['ms']:.3f} ms (plain {v['plain_ms']:.3f} ms)"
-         for k, v in report.items() if k in ("csr_to_dense", "matmul_triu")]
+        [f"{KERNELS[k][0]}: {timing(report[k])}" for k in ("csr_to_dense", "split_bf16")]
+        + [f"split_bf16 of B^T {report['split_bf16']['ms_transposed']:.3f} ms"]
+        + [f"K1 {form}: {timing(r)}" for form, r in k1_forms.items()]
+        + ["K1 against plain: " + ", ".join(
+            f"{branch} max abs err {e['max_abs_err']:.3e} ({e['max_err_of_unit']:.3e} of |A||B|,"
+            f" limit {RTOL})" for branch, e in k1_err.items())
+           + "; each branch's two forms bit-identical, split3's bits differ from HIGHEST's"]
+        + [f"K1 {branch} A B parts, one window: split A {r['split_a_ms']:.3f} + split B^T "
+           f"{r['split_bt_ms']:.3f} + GEMM {r['gemm_ms']:.3f} ms ({r['gemm_bound_ms'] / r['gemm_ms']:.1%}"
+           f" of its bound) against K1 whole {r['whole_ms']:.3f} ms" for branch, r in k1_parts.items()]
         + [ext(f"K2 {N}^2 triu", ext_10k_triu), ext(f"K4 {N}^2 full", ext_10k_full),
            ext(f"K2 {SIB_N}^2 triu", ext_sib_triu),
            ext(f"K4 {SIB_N}^2 ({ext_sib_full['nnz'] / SIB_N**2:.3f} dense)", ext_sib_full)]))
+
+    # 3b. K1's branches against the f64 oracle, and the split3 gate
+    t0 = time.perf_counter()
+    phase("split3-gate", t0, "max rel err vs f64 oracle: " + split3_gate())
 
     # 4. main path: the requests through the public entry point, counted
     t0 = time.perf_counter()
@@ -814,7 +1074,7 @@ def main() -> int:
         require(launches_main[key] > 0, f"the main path launched no {KERNELS[key][0]}")
     require(launches_main["bsr_matmul_dense"] == launches_main["bsr_bsr_matmul_dense"] == 0,
             "the dense main path launched a BSR kernel")
-    for key in ("matmul_triu", "dense_to_csr_triu", "csr_to_dense"):
+    for key in ("matmul_triu", "split_bf16", "dense_to_csr_triu", "csr_to_dense"):
         require(per_request["headline_symmetric_10k"][key] > 0,
                 f"the headline request launched no {KERNELS[key][0]}")
     require(per_request["nonsymmetric_12288"]["dense_to_csr"] > 0,
@@ -831,7 +1091,7 @@ def main() -> int:
     require(torch.equal(got != 0, oracle != 0), "headline structure differs from the oracle")
     require(torch.allclose(got, oracle, rtol=RTOL, atol=ATOL), "headline outside the oracle")
     max_rel = float(((got - oracle).abs() / oracle.abs().clamp_min(1e-300)).max())
-    del got, oracle, c_sp
+    del got, c_sp
 
     sib_ref = (sa_sp @ sb_sp).tocsr()
     nonsym = results.pop("nonsymmetric_12288")
@@ -852,6 +1112,28 @@ def main() -> int:
         f"dense output {N}^2: max abs err {dense_err:.2e}, {seconds['dense_output_10k']:.3f} s",
         f"routes {routes}", f"launches by request {per_request}", f"launches {launches_main}"]))
 
+    # 4b. the explicit-FAST request through the device-resident API: K1's
+    # split3 branch, which the term gate admits at the headline, counted
+    t0 = time.perf_counter()
+    require(_split3_within_oracle(a, b), "the split3 gate shuts the headline out")
+    fast_answers = {}
+    reset_launches()
+    fast_per_request, fast_seconds = counted(
+        [(FAST_LABEL, lambda _: smt.multiply(a, b, output_format="dense", symmetric=True,
+                                             precision="fast"))], fast_answers)
+    launches_fast = dict(LAUNCHES)
+    want = {"csr_to_dense": 2, "split_bf16": 2, "matmul_triu": 1}
+    require(all(launches_fast[key] == want.get(key, 0) for key in KERNELS),
+            f"{FAST_LABEL}: launches {launches_fast}, not K3 x2, split_bf16 x2 and K1")
+    got = fast_answers.pop(FAST_LABEL).double()
+    require(torch.equal(got != 0, oracle != 0), f"{FAST_LABEL}: structure differs from the oracle")
+    require(torch.allclose(got, oracle, rtol=RTOL, atol=ATOL), f"{FAST_LABEL}: outside the oracle")
+    fast_rel = float(((got - oracle).abs() / oracle.abs().clamp_min(1e-300)).max())
+    del got, oracle
+    phase("fast", t0, f"multiply(dense, symmetric, precision='fast') {N}^2: K1 split3, max rel "
+          f"err vs f64 oracle {fast_rel:.3e}, first call {fast_seconds[FAST_LABEL]:.3f} s | "
+          f"launches by request {fast_per_request}")
+
     # 5. sibling: symmetric sparse output at 12,288^2 (K2 on a ~36%-dense product)
     t0 = time.perf_counter()
     got = smt.sparse_matrix_multiply(sa_sp, sb_sp, symmetric=True)
@@ -866,13 +1148,16 @@ def main() -> int:
     cap = smt.bucket_capacity(N * (N + 1) // 2)
     t_dev = wall_s(lambda: smt.multiply(a, b, output_format="sparse", symmetric=True,
                                         out_capacity=cap))
+    t_dev_fast = wall_s(lambda: smt.multiply(a, b, output_format="sparse", symmetric=True,
+                                             out_capacity=cap, precision="fast"))
     t_e2e = wall_s(lambda: smt.sparse_matrix_multiply(a_sp, b_sp, symmetric=True))
     nnz_c = N * (N + 1) // 2
     busy, t_prof = device_busy_s(lambda: smt.sparse_matrix_multiply(a_sp, b_sp, symmetric=True))
     idle = f"{1 - busy / t_prof:.4f}" if busy > 0 else "not measured (no device time traced)"
     stages = stage_times(a_sp, b_sp)
     phase("timing", t0, f"{name} [{smi}]: multiply(sparse, symmetric) device-resident "
-          f"{t_dev:.4f} s = {nnz_c / t_dev:.4e} nnz(C)/s | sparse_matrix_multiply end to end "
+          f"{t_dev:.4f} s = {nnz_c / t_dev:.4e} nnz(C)/s (precision='fast', K1 split3: "
+          f"{t_dev_fast:.4f} s) | sparse_matrix_multiply end to end "
           f"{t_e2e:.4f} s = {nnz_c / t_e2e:.4e} nnz(C)/s | profiled call: device busy "
           f"{busy:.4f} s of {t_prof:.4f} s wall, idle share {idle} | peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
@@ -889,12 +1174,12 @@ def main() -> int:
     bsr_report = bsr_kernels(a_bsp, b_bsp, bu_sp)
     report.update(bsr_report)
     k5, k6 = bsr_report["bsr_matmul_dense"], bsr_report["bsr_bsr_matmul_dense"]
-    phase("bsr-kernels", t0, f"{BSR_N}^2, {BSR_BLOCK}^2 blocks: K6 {k6['ms']:.3f} ms (plain "
-          f"{k6['plain_ms']:.3f}; {k6['n_pairs']} pairs, {k6['visited_blocks']} of "
+    phase("bsr-kernels", t0, f"{BSR_N}^2, {BSR_BLOCK}^2 blocks: K6 {timing(k6)}; "
+          f"{k6['n_pairs']} pairs, {k6['visited_blocks']} of "
           f"{(BSR_N // BSR_BLOCK) ** 2} output blocks visited, the rest exactly 0; max abs err "
-          f"{k6['max_abs_err']:.2e}) | K5 {k5['ms']:.3f} ms (plain {k5['plain_ms']:.3f}; "
+          f"{k6['max_abs_err']:.2e} | K5 {timing(k5)}; "
           f"{k5['n_a_blocks']} A blocks, {k5['empty_block_rows']} empty block-rows; max abs err "
-          f"{k5['max_abs_err']:.2e})")
+          f"{k5['max_abs_err']:.2e}")
 
     # 8. BSR path: the requests through the public entry point, counted
     t0 = time.perf_counter()
@@ -967,23 +1252,28 @@ def main() -> int:
 
     # 11. the triple product H Q H^T (H the headline A), counted, and its times
     q_sp = sp.random(N, N, density=DENSITY, format="csr", random_state=TRIPLE_Q_SEED)
-    triple_per_request, launches_triple = triple_phase(a_sp, q_sp, name, smi)
+    triple_per_request, launches_triple, k1_triple = triple_phase(a_sp, q_sp, name, smi)
+    report["matmul_triu"]["forms"].update(k1_triple)
     del q_sp
 
     # 12. the inversion workflow at n_obs << n_state, counted, and its times
-    inv_per_request, launches_inv = inversion_phase(name, smi)
+    inv_per_request, launches_inv, k1_inv = inversion_phase(name, smi)
+    report["matmul_triu"]["forms"].update(k1_inv)
 
     kernels = []
-    by_request = {**per_request, **bsr_per_request, **fused_per_call, **triple_per_request,
-                  **inv_per_request}
-    path_launches = (launches_main, launches_bsr, launches_fused, launches_triple, launches_inv)
+    by_request = {**per_request, **fast_per_request, **bsr_per_request, **fused_per_call,
+                  **triple_per_request, **inv_per_request}
+    path_launches = (launches_main, launches_fast, launches_bsr, launches_fused, launches_triple,
+                     launches_inv)
     for key, (kname, source, replaces) in KERNELS.items():
         r = report[key]
         kernels.append({
             "name": kname, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(counts[key] for counts in path_launches),
             "launches_by_request": {label: n[key] for label, n in by_request.items()},
-            "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+            **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                 "library_ms")},
+            **{k: r[k] for k in ("forms", "parts") if k in r},
         })
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -9,6 +9,8 @@ reads.  Two differences:
 * There are no per-kernel switches.  A CUDA tensor runs the hand-written
   kernel; a CPU tensor runs the kernel's plain PyTorch version.  The one
   force switch, ``force_bsr``, is the counterpart of ``force_pallas_bsr``.
+  K1's split3 branch has no switch either: the caller's explicit
+  ``precision="fast"`` selects it, as in JAX (see :mod:`.ops.dense_path`).
 """
 
 from __future__ import annotations

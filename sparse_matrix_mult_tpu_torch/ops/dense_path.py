@@ -4,10 +4,13 @@ Counterpart of :mod:`sparse_matrix_mult_tpu.ops.dense_path`.  At the
 densities the reference targets the product is nearly dense, so SpGEMM is
 lowered onto one dense product: densify both operands (K3), multiply
 (:func:`policy_matmul`, or K1 for the upper triangle of a symmetric product) and
-extract the structure (K2/K4).
+extract the structure (K2/K4).  K1 takes its three-pass split3 branch under
+the same conditions as in the JAX package (:func:`spgemm_dense_out`).
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -43,6 +46,24 @@ def _expected_terms(a: CSRMatrix, b: CSRMatrix) -> float:
     return (a.capacity * b.capacity) / max(m * k * n, 1)
 
 
+def _split3_within_oracle(a: CSRMatrix, b: CSRMatrix, rtol: float = 1e-5) -> bool:
+    """Size-aware gate of K1's split3 branch (the JAX package's, constant
+    for constant).
+
+    The bf16 hi/lo split keeps 16 of f32's 24 mantissa bits, so each partial
+    product carries ~2^-16 relative error; over ``T`` random-signed terms the
+    entry-wise max relative error behaves like ``2^-16 / sqrt(T)``, and the
+    worst entries are those with the fewest terms.  With T ~ Poisson(tbar)
+    over m*n entries the smallest count is ~ ``tbar - sqrt(2 tbar ln(m n))``.
+    split3 is engaged only when that worst case clears rtol with 2x margin.
+    Uses the capacities only.
+    """
+    m, n = a.shape[0], b.shape[1]
+    tbar = _expected_terms(a, b)
+    tmin = max(tbar - math.sqrt(2.0 * tbar * math.log(max(m * n, 2))), 1.0)
+    return 2.0**-16 / math.sqrt(tmin) <= 0.5 * rtol
+
+
 def _triu_kernel_ok(a: CSRMatrix, m: int, n: int, prec: str) -> bool:
     """Whether the symmetric product goes through K1: CUDA operands, the FAST
     policy, a square output and more than 2^20 elements."""
@@ -58,10 +79,13 @@ def spgemm_dense_out(a: CSRMatrix, b: CSRMatrix, symmetric: bool = False,
         m, n = a.shape[0], b.shape[1]
         if _triu_kernel_ok(a, m, n, prec):
             # Upper-tile-only product: the strictly-lower tiles are skipped.
+            # split3 only on the caller's explicit FAST (AUTO resolving to
+            # FAST does not opt into its weaker bound) and inside the gate.
+            split3 = precision == Precision.FAST and _split3_within_oracle(a, b)
             ad = csr_to_dense(a, torch.float32)
             bd = csr_to_dense(b, torch.float32)
             out_dtype = torch.promote_types(a.dtype, b.dtype)
-            return torch.triu(matmul_triu(ad, bd)).to(out_dtype)
+            return torch.triu(matmul_triu(ad, bd, split3=split3)).to(out_dtype)
         return torch.triu(product_dense(a, b, prec))
     return product_dense(a, b, prec)
 

@@ -8,9 +8,11 @@ output is symmetric even when ``Q`` is not (the reference's contract).
 On the card under FAST, K3 densifies H and Q in float32, ``H.Q`` is one
 full-FP32 cuBLAS product (the JAX package leaves it to XLA), and the second
 contraction goes through K1 in its ``transpose_b`` form: only the upper
-tiles of ``T . H^T`` are computed, reading the (m, n) row-major ``hd`` as
-K1's (N, K) operand, with no transposed copy.  The JAX ``split3`` branch is
-not carried over (K1 is FP32 only).
+tiles of ``T . H^T`` are computed, and K1's split reads the (m, n)
+row-major ``hd`` as its K-major (N, K) operand directly.  K1 runs its
+full-f32 (HIGHEST) branch, or its three-pass split3 branch when the caller
+passed ``precision="fast"`` explicitly, as in the JAX package (no term-count
+gate here, as there).
 """
 
 from __future__ import annotations
@@ -48,7 +50,8 @@ def triple_product_dense(h: CSRMatrix, q: CSRMatrix, compute_full_matrix: int = 
         qd = csr_to_dense(q, torch.float32)
         with full_fp32():
             t = torch.matmul(hd, qd)
-        c = matmul_triu(t, hd, transpose_b=True).to(out_dtype)
+        split3 = precision == Precision.FAST
+        c = matmul_triu(t, hd, transpose_b=True, split3=split3).to(out_dtype)
     elif prec == Precision.STRICT or h.device.type != "cuda":
         c = _chain(csr_to_dense(h, out_dtype), csr_to_dense(q, out_dtype))
     elif prec == Precision.FAST:

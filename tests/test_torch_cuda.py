@@ -14,10 +14,12 @@ import scipy.sparse as sp
 import torch
 
 import sparse_matrix_mult_tpu_torch as tsmm
+from sparse_matrix_mult_tpu_torch.ops.convert import csr_to_dense
 from sparse_matrix_mult_tpu_torch.ops.kernels import LAUNCHES
 from sparse_matrix_mult_tpu_torch.ops.kernels import bsr_spgemm as kb
 from sparse_matrix_mult_tpu_torch.ops.kernels import convert_kernels as ck
 from sparse_matrix_mult_tpu_torch.ops.kernels import triu_matmul as tm
+from sparse_matrix_mult_tpu_torch.ops.matmul import full_fp32
 
 pytestmark = pytest.mark.cuda
 
@@ -77,28 +79,105 @@ def test_dense_to_csr_kernel_pads_a_large_capacity(cuda):
         assert torch.equal(g, w)
 
 
+@pytest.mark.parametrize("split3", [False, True])
 @pytest.mark.parametrize("transpose_b", [False, True])
-@pytest.mark.parametrize("m,k", [(1, 1), (100, 700), (129, 8), (256, 256), (300, 13), (700, 300)])
-def test_matmul_triu_kernel(cuda, m, k, transpose_b):
+@pytest.mark.parametrize("m,k", [(1, 1), (100, 700), (129, 8), (256, 256), (300, 13), (700, 300),
+                                 (1000, 65), (130, 1000)])
+def test_matmul_triu_kernel(cuda, m, k, transpose_b, split3):
+    """K1's HIGHEST and split3 branches against their plain versions within
+    1e-5 (|A| |B|), at K = 1, 8, 13 and others off the 64-deep K-step; the
+    two forms give the same bits, and split3's bits are not HIGHEST's (a K1
+    that ignored ``split3`` would pass the bound)."""
     rng = np.random.default_rng(m + k)
     a = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32)).to(cuda)
     b = torch.from_numpy(rng.standard_normal((m, k) if transpose_b else (k, m)).astype(np.float32))
     b = b.to(cuda)
-    got = torch.triu(tm.matmul_triu(a, b, transpose_b=transpose_b))
-    want = torch.triu(tm.matmul_triu_plain(a, b, transpose_b=transpose_b))
-    bound = 1e-5 * torch.triu(torch.matmul(a.abs(), (b.T if transpose_b else b).abs()))
-    assert bool(((got - want).abs() <= bound).all())
+    before = dict(LAUNCHES)
+    got = torch.triu(tm.matmul_triu(a, b, transpose_b=transpose_b, split3=split3))
+    torch.cuda.synchronize()
+    assert LAUNCHES["matmul_triu"] == before["matmul_triu"] + 1
+    assert LAUNCHES["split_bf16"] == before["split_bf16"] + 2
+    want = torch.triu(tm.matmul_triu_plain(a, b, transpose_b=transpose_b, split3=split3))
+    with full_fp32():
+        unit = torch.triu(torch.matmul(a.abs(), (b.T if transpose_b else b).abs()))
+    assert bool(((got - want).abs() <= 1e-5 * unit).all())
+    other = b.T.contiguous()
+    assert torch.equal(got, torch.triu(tm.matmul_triu(a, other, transpose_b=not transpose_b,
+                                                      split3=split3)))
+    if m > 1:
+        assert not torch.equal(got, torch.triu(tm.matmul_triu(a, b, transpose_b=transpose_b,
+                                                              split3=not split3)))
 
 
-def test_matmul_triu_kernel_rectangular_output(cuda):
-    """A non-square output: every upper tile (ti <= tj) is computed."""
-    rng = np.random.default_rng(0)
-    a = torch.from_numpy(rng.standard_normal((300, 64)).astype(np.float32)).to(cuda)
-    b = torch.from_numpy(rng.standard_normal((64, 700)).astype(np.float32)).to(cuda)
-    got = tm.matmul_triu(a, b)
-    want = a @ b
-    tiles = torch.arange(300, device=cuda)[:, None] // 128 <= torch.arange(700, device=cuda) // 128
+@pytest.mark.parametrize("split3", [False, True])
+@pytest.mark.parametrize("m,k,n", [(300, 64, 700), (700, 100, 300)])
+def test_matmul_triu_kernel_rectangular_output(cuda, m, k, n, split3):
+    """A non-square output, wide or tall: every upper tile (ti <= tj) is
+    computed."""
+    rng = np.random.default_rng(m + n)
+    a = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32)).to(cuda)
+    b = torch.from_numpy(rng.standard_normal((k, n)).astype(np.float32)).to(cuda)
+    got = tm.matmul_triu(a, b, split3=split3)
+    want = tm.matmul_triu_plain(a, b, split3=split3)
+    tiles = torch.arange(m, device=cuda)[:, None] // 128 <= torch.arange(n, device=cuda) // 128
     assert torch.allclose(got[tiles], want[tiles], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("split3", [False, True])
+def test_matmul_triu_pieces_is_k1s_gemm(cuda, split3):
+    """K1's GEMM alone, on the pieces of the two splits, gives K1's bits and
+    counts one matmul_triu launch."""
+    rng = np.random.default_rng(31)
+    a = torch.from_numpy(rng.standard_normal((300, 200)).astype(np.float32)).to(cuda)
+    b = torch.from_numpy(rng.standard_normal((200, 400)).astype(np.float32)).to(cuda)
+    pieces = 2 if split3 else 3
+    ap, bp = tm.split_bf16(a, pieces), tm.split_bf16(b, pieces, transpose=True)
+    before = LAUNCHES["matmul_triu"]
+    got = tm.matmul_triu_pieces(ap, bp, 300, 400)
+    torch.cuda.synchronize()
+    assert LAUNCHES["matmul_triu"] == before + 1
+    tiles = torch.arange(300, device=cuda)[:, None] // 128 <= torch.arange(400, device=cuda) // 128
+    assert torch.equal(got[tiles], tm.matmul_triu(a, b, split3=split3)[tiles])
+
+
+@pytest.mark.parametrize("pieces", [2, 3])
+@pytest.mark.parametrize("transpose", [False, True])
+@pytest.mark.parametrize("rows,k", [(1, 1), (5, 64), (129, 700), (300, 13), (1000, 333)])
+def test_split_bf16_kernel(cuda, rows, k, transpose, pieces):
+    """The split kernel bit for bit against its plain version, padding
+    included, from an aligned operand and from one 4 bytes off alignment."""
+    rng = np.random.default_rng(rows + k)
+    x = rng.standard_normal((k, rows) if transpose else (rows, k)).astype(np.float32)
+    x *= 10.0 ** rng.integers(-6, 7, x.shape)
+    aligned = torch.from_numpy(x).to(cuda)
+    shifted = torch.empty(x.size + 1, device=cuda)[1:].view(x.shape)
+    shifted.copy_(aligned)
+    for given in (aligned, shifted):
+        before = LAUNCHES["split_bf16"]
+        got = tm.split_bf16(given, pieces, transpose=transpose)
+        torch.cuda.synchronize()
+        assert LAUNCHES["split_bf16"] == before + 1
+        assert torch.equal(got, tm.split_bf16_plain(given, pieces, transpose=transpose))
+
+
+def test_fast_multiply_takes_split3(cuda):
+    """multiply(precision="fast", symmetric=True) on a dense-enough product
+    takes K1's split3 branch (two splits and one K1 launch) and stays within
+    the f64 oracle; AUTO takes the HIGHEST branch with the same launches."""
+    a_sp = sp.random(1200, 1000, density=0.3, format="csr", random_state=24)
+    b_sp = sp.random(1000, 1200, density=0.3, format="csr", random_state=25)
+    a, b = tsmm.from_scipy(a_sp, device=cuda), tsmm.from_scipy(b_sp, device=cuda)
+    ad, bd = (csr_to_dense(x, torch.float32) for x in (a, b))
+    ref = np.triu((a_sp @ b_sp).toarray())
+    for precision in ("fast", None):
+        before = dict(LAUNCHES)
+        got = tsmm.multiply(a, b, output_format="dense", symmetric=True, precision=precision)
+        torch.cuda.synchronize()
+        assert LAUNCHES["split_bf16"] == before["split_bf16"] + 2
+        assert LAUNCHES["matmul_triu"] == before["matmul_triu"] + 1
+        branch = torch.triu(tm.matmul_triu(ad, bd, split3=precision == "fast"))
+        assert torch.equal(got, branch.to(got.dtype))
+        np.testing.assert_allclose(got.cpu().numpy(), ref, rtol=1e-5, atol=1e-8)
 
 
 def test_kernels_reject_mismatched_inputs(cuda):
@@ -497,7 +576,7 @@ def test_cuda_tensors_never_reach_a_plain_version(cuda, monkeypatch):
     torch.cuda.synchronize()
     assert torch.equal(back, dense)
     for key, n in (("dense_to_csr_fused", 1), ("csr_to_dense_fused", 1), ("dense_to_csr", 1),
-                   ("csr_to_dense", 3), ("matmul_triu", 1)):
+                   ("csr_to_dense", 3), ("matmul_triu", 1), ("split_bf16", 2)):
         assert LAUNCHES[key] == before[key] + n, key
 
 

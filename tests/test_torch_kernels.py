@@ -1,7 +1,8 @@
 """The port's kernels (plain PyTorch versions, on the CPU) against the JAX
 package's Pallas kernels run in interpret mode, on identical inputs.
 
-K1 matmul_triu, K3 csr_to_dense, K4 dense_to_csr and K2 dense_to_csr_triu.
+K1 matmul_triu (both branches), K3 csr_to_dense, K4 dense_to_csr and K2
+dense_to_csr_triu.
 The CUDA versions are held against these plain versions on the card
 (tests/test_torch_cuda.py, chip_smoke.py).
 """
@@ -48,21 +49,32 @@ def _assert_same_csr(got, want):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w), err_msg=field)
 
 
+@pytest.mark.parametrize("split3", [False, True])
 @pytest.mark.parametrize("transpose_b", [False, True])
 @pytest.mark.parametrize("m,k", [(300, 500), (256, 256), (100, 700)])
-def test_matmul_triu_plain_matches_pallas(m, k, transpose_b):
-    """f32, upper triangle only, within rtol 1e-5 relative to |A||B|."""
+def test_matmul_triu_plain_matches_pallas(m, k, transpose_b, split3):
+    """Upper triangle only.  HIGHEST (f32): within rtol 1e-5 relative to
+    |A||B| of the Pallas kernel.  split3: within 2^-16 (|A||B|) + 1e-6 of
+    the Pallas split3 kernel and of the exact product (the JAX test's
+    bound)."""
     rng = np.random.default_rng(m + k)
     a = rng.standard_normal((m, k)).astype(np.float32)
     b = rng.standard_normal((m, k) if transpose_b else (k, m)).astype(np.float32)
     want = np.triu(np.asarray(jax_matmul_triu(
         jnp.asarray(a), jnp.asarray(b), transpose_b=transpose_b, tile=128, kblock=128,
-        split3=False,
+        split3=split3,
     )))
-    got = torch.triu(tm.matmul_triu(_t(a), _t(b), transpose_b=transpose_b)).numpy()
-    scale = np.abs(a) @ np.abs(b.T if transpose_b else b)
+    got = torch.triu(tm.matmul_triu(_t(a), _t(b), transpose_b=transpose_b,
+                                    split3=split3)).numpy()
+    bt = b.T if transpose_b else b
+    scale = np.triu(np.abs(a) @ np.abs(bt))
     assert got.shape == want.shape == (m, m)
-    assert np.all(np.abs(got - want) <= 1e-5 * np.triu(scale))
+    if not split3:
+        assert np.all(np.abs(got - want) <= 1e-5 * scale)
+        return
+    bound = 2.0**-16 * scale + 1e-6
+    assert np.all(np.abs(got - want) <= bound)
+    assert np.all(np.abs(got - np.triu(a.astype(np.float64) @ bt.astype(np.float64))) <= bound)
 
 
 @pytest.mark.parametrize("m,n,d,lane,gs", CASES)

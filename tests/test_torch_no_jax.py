@@ -31,10 +31,12 @@ def test_import_leaves_jax_unloaded():
 
 
 def _port_modules():
+    """The port's modules, and the script that drives it on the card."""
     for dirpath, _, files in os.walk(PORT):
         for f in files:
             if f.endswith(".py"):
                 yield os.path.join(dirpath, f)
+    yield os.path.join(ROOT, "chip_smoke.py")
 
 
 @pytest.mark.parametrize("path", sorted(_port_modules()), ids=lambda p: os.path.relpath(p, ROOT))
