@@ -6,14 +6,19 @@ Run from the repository root:  python3 chip_smoke.py
 Phases, one line each:
   1. card    -- device name, nvidia-smi name/power limit, TF32 switched off;
   2. build   -- nvcc builds csrc/*.cu from the checkout (ptxas report shown),
-                and K1's HGMMA (tensor-core) and UTMALDG (TMA) instructions
-                are counted in the SASS (cuobjdump -sass);
+                and the HGMMA (tensor-core) and UTMALDG (TMA) instructions of
+                K1 and K5 and the UBLKCP (bulk copy) instructions of K3 are
+                counted in the SASS (cuobjdump -sass);
   3. kernels -- each hand-written kernel against its plain PyTorch version
                 on the card, at the shapes the main path gives it, with both
                 times, the largest difference, the kernel's bound (bytes or
                 operations at the card's peak) and the time of one PyTorch
                 call computing the same function (library_ms, a yardstick
-                the port never calls).  K1 in both branches (HIGHEST,
+                the port never calls).  K3 bit for bit against its plain
+                version and K8 at every shape the counted paths densify (the
+                10k and 12,288^2 operands, B_u, the inversion's H and Q),
+                each timed with K8 beside it, as a whole call and as the
+                device's time alone (device_ms).  K1 in both branches (HIGHEST,
                 split3) and both forms (A B, A B^T), each form bit-identical
                 to the other, each within 1e-5 of (|A| |B|) of its plain
                 version, split3's bits unlike HIGHEST's; K1's two splits
@@ -40,10 +45,14 @@ Phases, one line each:
   7. bsr-kernels -- K5 and K6 against their plain versions at the BSR
                 path's shapes (8192^2, 128^2 blocks, 10% of them occupied):
                 both times, the largest difference, unvisited blocks zero;
+                K5's GEMM alone bit for bit K5's, K5 within 1e-6 of (|A| |B|)
+                of the six passes of its pieces (split3's three passes shown
+                outside that limit), and K5's two splits and its GEMM timed
+                in one window;
   8. bsr-main -- the BSR path: four requests through sparse_matrix_multiply
                 with block-sparse A, counts zeroed just before and read just
                 after: A x B (K6), symmetric (K6, K2), A x uniform B_u (K3,
-                K5) and dense output (K6).  Route "bsr", launches per
+                split_bf16 x2, K5) and dense output (K6).  Route "bsr", launches per
                 request, and each result against an f64 oracle on the card;
   9. bsr-timing -- requests 1 and 3 end to end on the BSR route and, with
                 use_bsr=False, on the dense route, warm, min of 3; and
@@ -72,12 +81,16 @@ Phases, one line each:
                 and K1's transpose_b form in both branches against its plain
                 version (as in phase 3) at the (T, H) the inversion gives it.
 
-Then a JSON line of the kernels (launches summed over the six counted paths),
+Then a JSON line of the kernels (launches summed over the six counted paths;
+K3 also by shape).  A kernel's "ms" is its whole call on an idle stream, the
+wrapper's host work included; K3 and K5 add "device_ms", the same call with
+a spin kernel queued before it, which leaves the device's time alone.  Then
 the nvidia-smi line, and last {"ok": true, "device": {...}}.  Any failed
 check exits non-zero; without a CUDA device, or without the package beside
 it, it exits non-zero before any result is printed.
 """
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -122,14 +135,20 @@ RTOL, ATOL = 1e-5, 1e-8  # the reference's oracle tolerance
 # from HIGHEST's and that its f64-oracle error is well above HIGHEST's (3b).
 K1_BRANCHES = ("highest", "split3")
 SPLIT3_ERR_RATIO = 2.0  # split3's max rel err vs f64 at least this times HIGHEST's
+# K5 against the six passes of its own pieces, in units of |A| |B| (K ~ 830:
+# f32 rounding is far below it, the three passes of split3 ~3e-6 above it).
+K5_PIECES_TOL = 1e-6
 # K1's split3 branch against the f64 oracle at the configurations of
 # benchmarks/results_accuracy_tpu.json (seeds 1 and 2, as benchmarks/accuracy.py).
 SPLIT3_CONFIGS = ((500, 0.3), (2000, 0.05), (N, DENSITY))
 # One H100 SXM at 700 W (NVIDIA's data sheet): device memory rate,
 # and the dense peaks of bf16 on the tensor cores and of FP32 on the CUDA cores.
+# The tensor-core kernels (K1, K5) and K6 are held to the bf16 rate of the
+# passes their function needs at HIGHEST: six per f32 product.
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}
 KERNEL_RUNS = 5
+SPIN_CYCLES = 2_000_000  # ~1 ms at the H100's clock, longer than any wrapper's host work (device_ms)
 PATH_RUNS = 3
 DEVICE = "cuda"
 
@@ -174,9 +193,30 @@ BSR_REQUESTS = (
     ("bsr_x_bsr_8192", "b", dict(), ("bsr_bsr_matmul_dense",)),
     ("bsr_x_bsr_symmetric_8192", "b", dict(symmetric=True),
      ("bsr_bsr_matmul_dense", "dense_to_csr_triu")),
-    ("bsr_x_dense_8192", "bu", dict(), ("csr_to_dense", "bsr_matmul_dense")),
+    ("bsr_x_dense_8192", "bu", dict(), ("csr_to_dense", "split_bf16", "bsr_matmul_dense")),
     ("bsr_dense_output_8192", "b", dict(output_format="dense"), ("bsr_bsr_matmul_dense",)),
 )
+
+
+K3_OPERAND_10K, K3_SIBLING, K3_BU = f"operand_{N}", f"sibling_operand_{SIB_N}", f"bu_{BSR_N}"
+K3_INV_H, K3_INV_Q = f"inversion_h_{INV_OBS}x{INV_STATE}", f"inversion_q_{INV_STATE}"
+
+
+def k3_operands() -> dict:
+    """The operands K3 densifies in each counted request, in order, by the
+    labels of phase 3's K3 shapes (the triple product's H is the headline A
+    and its Q a 10k^2 d=0.1 matrix too; each inversion call densifies H and
+    Q twice)."""
+    return {
+        "headline_symmetric_10k": (K3_OPERAND_10K,) * 2,
+        "nonsymmetric_12288": (K3_SIBLING,) * 2,
+        "dense_output_10k": (K3_OPERAND_10K,) * 2,
+        FAST_LABEL: (K3_OPERAND_10K,) * 2,
+        "bsr_x_dense_8192": (K3_BU,),
+        **{f"triple_{N}_full{cfm}": (K3_OPERAND_10K,) * 2 for cfm in (0, 1)},
+        **{f"{call}_{INV_OBS}x{INV_STATE}": (K3_INV_H, K3_INV_Q) * 2
+           for call in ("invert", "posterior_covariance")},
+    }
 
 
 def require(cond, what: str) -> None:
@@ -188,14 +228,20 @@ def phase(name: str, t0: float, detail: str) -> None:
     print(f"[{name}] {detail} ({time.perf_counter() - t0:.2f} s)", flush=True)
 
 
-def event_ms(fn, runs: int = KERNEL_RUNS) -> float:
-    """Warm, then the minimum over ``runs`` of CUDA-event time around ``fn``."""
+def event_ms(fn, runs: int = KERNEL_RUNS, queued: bool = False) -> float:
+    """Warm, then the minimum over ``runs`` of CUDA-event time around ``fn``
+    on an idle stream: the time of the whole call, its wrapper's host work
+    (checks, allocation, the launch call) included.  With ``queued``, a spin
+    kernel queued before the start event keeps the stream busy while that
+    host work runs, so the time is the device's alone (``device_ms``)."""
     fn()
     torch.cuda.synchronize()
     best = float("inf")
     for _ in range(runs):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        if queued:
+            torch.cuda._sleep(SPIN_CYCLES)
         start.record()
         fn()
         end.record()
@@ -280,9 +326,13 @@ def sparse_csr(ptr, idx, val, shape):
     return torch.sparse_csr_tensor(ptr, idx[:nnz], val[:nnz], size=tuple(shape))
 
 
+SASS_OPS = ("HGMMA", "UTMALDG", "UBLKCP")  # tensor-core, TMA load, bulk copy
+
+
 def sass_counts(path: str):
-    """Counts of tensor-core (HGMMA) and TMA (UTMALDG) instructions in each
-    compiled kernel of the library that has any, or None without cuobjdump."""
+    """Counts of tensor-core (HGMMA), TMA (UTMALDG) and bulk-copy (UBLKCP)
+    instructions in each compiled kernel of the library that has any, or
+    None without cuobjdump."""
     tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
     if not os.path.exists(tool):
         return None
@@ -290,7 +340,7 @@ def sass_counts(path: str):
                           check=True).stdout
     counts = {}
     for section in sass.split("Function : ")[1:]:
-        found = {op: section.count(op) for op in ("HGMMA", "UTMALDG")}
+        found = {op: section.count(op) for op in SASS_OPS}
         if any(found.values()):
             counts[section.split(None, 1)[0]] = found
     return counts
@@ -476,6 +526,20 @@ def bsr_stage_times(a_sp, b_sp):
     return best, extraction
 
 
+def split3_passes(ap, bp, a, n) -> torch.Tensor:
+    """What a K5 that ran split3 would give: the three passes of its pieces
+    whose orders sum below 2, summed in f32 over A's stored blocks."""
+    k = a.shape[1]
+    c = torch.zeros((a.shape[0], n), dtype=torch.float32, device=ap.device)
+    blocks = ap.reshape(3, a.block_capacity, a.block_size, a.block_size).to(torch.float32)
+    with full_fp32():
+        for i in range(2):
+            ai = smt.bsr_to_dense(dataclasses.replace(a, blocks=blocks[i]))
+            for j in range(2 - i):
+                c += torch.matmul(ai, bp[j, :n, :k].to(torch.float32).T)
+    return c
+
+
 def bsr_kernels(a_sp, b_sp, bu_sp) -> dict:
     """K6 (A x B over the pair plan) and K5 (A x densified B_u) against their
     plain versions, at the BSR path's shapes."""
@@ -506,7 +570,7 @@ def bsr_kernels(a_sp, b_sp, bu_sp) -> dict:
         plain_ms=event_ms(lambda: kb.bsr_bsr_matmul_dense_plain(a, b, *tables, mask)),
         library_ms=None,  # PyTorch multiplies no two BSR matrices in one call
         **roofline(block_bytes * (int(a.nblocks) + int(b.nblocks)) + 4 * a.shape[0] * b.shape[1],
-                   2.0 * n * bsz**3),
+                   6 * 2.0 * n * bsz**3, "bf16"),
         n_pairs=n, n_a_blocks=plan["n_a_blocks"], visited_blocks=int(plan["mask"].sum()),
         unvisited_zero=True)
     del got, plain, bound, err, visited
@@ -521,17 +585,70 @@ def bsr_kernels(a_sp, b_sp, bu_sp) -> dict:
     require(bool((err <= bound).all()), "K5 outside 1e-5 of |A||B| against plain")
     empty = (a.indptr[1:] == a.indptr[:-1]).repeat_interleave(bsz)[: a.shape[0]]
     require(bool((got[empty] == 0).all()), "K5 left a row of an empty block-row non-zero")
-    nb = int(a.nblocks)
+    # K5's parts in one window: the split of A's blocks, that of B (as
+    # bsr_split makes them) and the GEMM alone on those pieces (K5's bits).
+    ap, bp = kb.bsr_split(a, bud)
+    n, k, nb = bud.shape[1], a.shape[1], int(a.nblocks)
+    require(torch.equal(kb.bsr_matmul_dense_pieces(ap, bp, a, n), got),
+            "K5's GEMM alone differs from K5")
+    # K5 against the six passes of the same pieces, at a limit that the three
+    # passes of split3 exceed (checked too, so that the limit can fail).
+    abs_ab = bound / RTOL
+    six = kb.bsr_matmul_dense_pieces_plain(ap, bp, a, n)
+    pieces_rel = float(((got.double() - six.double()).abs() / abs_ab.clamp(min=1e-30)).max())
+    require(pieces_rel <= K5_PIECES_TOL,
+            f"K5 {pieces_rel:.2e} of |A||B| from the six passes of its pieces")
+    three = split3_passes(ap, bp, a, n)
+    split3_rel = float(((three.double() - six.double()).abs() / abs_ab.clamp(min=1e-30)).max())
+    require(split3_rel > K5_PIECES_TOL, f"three passes only {split3_rel:.2e} from six: "
+            "the pieces check could not tell them apart")
+    del six, three, abs_ab
+    flops = 6 * 2.0 * nb * bsz * bsz * n  # six bf16 passes of HIGHEST
+    parts = dict(
+        split_a_ms=event_ms(lambda: tm.split_bf16(a.blocks.reshape(-1, bsz), 3)),
+        split_b_ms=event_ms(lambda: tm.split_bf16(bud[:k], 3, transpose=True, k_pad=a.nbc * bsz)),
+        gemm_ms=event_ms(lambda: kb.bsr_matmul_dense_pieces(ap, bp, a, n)),
+        whole_ms=event_ms(lambda: kb.bsr_matmul_dense(a, bud)),
+        gemm_bound_ms=roofline(2 * (ap.numel() + bp.numel()) + 4 * a.shape[0] * n, flops,
+                               "bf16")["bound_ms"])
+    del ap, bp
     a_lib = torch.sparse_bsr_tensor(a.indptr, a.indices[:nb], a.blocks[:nb], size=a.shape)
     out["bsr_matmul_dense"] = dict(
         max_abs_err=float(err.max()),
         ms=event_ms(lambda: kb.bsr_matmul_dense(a, bud)),
+        device_ms=event_ms(lambda: kb.bsr_matmul_dense(a, bud), queued=True),
         plain_ms=event_ms(lambda: kb.bsr_matmul_dense_plain(a, bud)),
         library_ms=event_ms(lambda: torch.matmul(a_lib, bud)),
-        **roofline(block_bytes * nb + 4 * (bud.numel() + a.shape[0] * bud.shape[1]),
-                   2.0 * nb * bsz * bsz * bud.shape[1]),
-        n_a_blocks=nb, empty_block_rows=int(empty.sum()) // bsz)
+        **roofline(block_bytes * nb + 4 * (bud.numel() + a.shape[0] * n), flops, "bf16"),
+        parts=parts, pieces_rel_err=pieces_rel, split3_rel_err=split3_rel, n_a_blocks=nb,
+        empty_block_rows=int(empty.sum()) // bsz)
     return out
+
+
+def uniform_bu():
+    """The BSR path's uniformly sparse B_u (every block occupied)."""
+    return sp.random(BSR_N, BSR_N, density=BU_DENSITY, format="csr", random_state=BU_SEED)
+
+
+def k3_at(mat_sp) -> dict:
+    """K3 on one operand the counted paths densify: bit for bit against its
+    plain version and K8, and its, K8's, the plain version's and the library
+    call's times beside its bound (the CSR read once, the dense written once)."""
+    x = smt.from_scipy(mat_sp, dtype=torch.float32, device=DEVICE)
+    csr = (x.indptr, x.indices, x.values, x.shape)
+    got = ck.csr_to_dense(*csr)
+    require(torch.equal(got, ck.csr_to_dense_plain(*csr)), f"K3 {x.shape} differs from plain")
+    require(torch.equal(got, ck.csr_to_dense_fused(*csr)), f"K3 {x.shape} differs from K8")
+    del got
+    m, n = x.shape
+    return dict(shape=[m, n], nnz=mat_sp.nnz, max_abs_err=0.0,
+                ms=event_ms(lambda: ck.csr_to_dense(*csr)),
+                k8_ms=event_ms(lambda: ck.csr_to_dense_fused(*csr)),
+                device_ms=event_ms(lambda: ck.csr_to_dense(*csr), queued=True),
+                k8_device_ms=event_ms(lambda: ck.csr_to_dense_fused(*csr), queued=True),
+                plain_ms=event_ms(lambda: ck.csr_to_dense_plain(*csr)),
+                library_ms=event_ms(lambda: sparse_csr(*csr).to_dense()),
+                **roofline(csr_bytes(m, mat_sp.nnz) + 4 * m * n))
 
 
 def check_bsr_result(label, got, oracle, bound) -> float:
@@ -931,11 +1048,14 @@ def main() -> int:
     _build.load()
     sass = sass_counts(path)
     if sass is not None:
-        k1_sass = [v for k, v in sass.items() if "triu_gemm_kernel" in k]
-        require(len(k1_sass) == 2 and all(v["HGMMA"] > 0 and v["UTMALDG"] > 0 for v in k1_sass),
-                f"K1's SASS lacks HGMMA or UTMALDG: {sass}")
-    phase("build", t0, f"nvcc built {path} | HGMMA/UTMALDG instructions by kernel (cuobjdump "
-          f"-sass): {sass if sass is not None else 'not counted (no cuobjdump)'}")
+        for kernel, instances, ops in (("triu_gemm_kernel", 2, ("HGMMA", "UTMALDG")),
+                                       ("bsr_dense_kernel", 1, ("HGMMA", "UTMALDG")),
+                                       ("csr_to_dense_kernel", 2, ("UBLKCP",))):
+            found = [v for k, v in sass.items() if kernel in k]
+            require(len(found) == instances and all(v[op] > 0 for v in found for op in ops),
+                    f"the SASS of {kernel} lacks {'/'.join(ops)}: {sass}")
+    phase("build", t0, f"nvcc built {path} | {'/'.join(SASS_OPS)} instructions by kernel "
+          f"(cuobjdump -sass): {sass if sass is not None else 'not counted (no cuobjdump)'}")
 
     # 3. kernels against their plain versions, at the main path's shapes
     t0 = time.perf_counter()
@@ -945,21 +1065,21 @@ def main() -> int:
     b = smt.from_scipy(b_sp, dtype=torch.float32, device=DEVICE)
     report = {}
 
+    # K3 at every operand the counted paths densify, bit for bit against its
+    # plain version and K8; B's 10k densify checked as well.
+    inv_h_sp, inv_q_sp = inversion_problem()[:2]
+    k3_shapes = {label: k3_at(mat) for label, mat in (
+        (K3_OPERAND_10K, a_sp), (K3_SIBLING, sa_sp), (K3_BU, uniform_bu()), (K3_INV_H, inv_h_sp),
+        (K3_INV_Q, inv_q_sp))}
+    del inv_h_sp, inv_q_sp
     ad = ck.csr_to_dense(a.indptr, a.indices, a.values, a.shape)
     bd = ck.csr_to_dense(b.indptr, b.indices, b.values, b.shape)
-    k3_err = 0.0
-    for got, m in ((ad, a), (bd, b)):
-        plain = ck.csr_to_dense_plain(m.indptr, m.indices, m.values, m.shape)
-        require(torch.equal(got, plain), "K3 differs from plain")
-        k3_err = max(k3_err, float((got - plain).abs().max()))
-    del plain
+    require(torch.equal(bd, ck.csr_to_dense_plain(b.indptr, b.indices, b.values, b.shape)),
+            "K3 differs from plain on B")
     report["csr_to_dense"] = dict(
-        max_abs_err=k3_err,
-        ms=event_ms(lambda: ck.csr_to_dense(a.indptr, a.indices, a.values, a.shape)),
-        plain_ms=event_ms(lambda: ck.csr_to_dense_plain(a.indptr, a.indices, a.values, a.shape)),
-        library_ms=event_ms(lambda: sparse_csr(a.indptr, a.indices, a.values, a.shape).to_dense()),
-        **roofline(csr_bytes(N, a_sp.nnz) + 4 * N * N),
-    )
+        max_abs_err=0.0, shapes=k3_shapes,
+        **{key: k3_shapes[K3_OPERAND_10K][key]
+           for key in ("ms", "device_ms", "plain_ms", "library_ms", "bound_ms", "bound_by")})
 
     # The split K1 starts with: bit for bit against its plain version, both
     # piece counts, both layouts; timed at the headline's A (HIGHEST, 3 pieces).
@@ -1039,7 +1159,11 @@ def main() -> int:
         return f"{label} {timing(r)}, nnz {r['nnz']}"
 
     phase("kernels", t0, " | ".join(
-        [f"{KERNELS[k][0]}: {timing(report[k])}" for k in ("csr_to_dense", "split_bf16")]
+        [f"K3 {label} {r['shape'][0]}x{r['shape'][1]} (nnz {r['nnz']}): {timing(r)}; K8 "
+         f"{r['k8_ms']:.3f}; device alone (queued) K3 {r['device_ms']:.3f}, K8 "
+         f"{r['k8_device_ms']:.3f}" for label, r in k3_shapes.items()]
+        + ["K3 bit for bit against plain and K8 at each"]
+        + [f"{KERNELS[k][0]}: {timing(report[k])}" for k in ("split_bf16",)]
         + [f"split_bf16 of B^T {report['split_bf16']['ms_transposed']:.3f} ms"]
         + [f"K1 {form}: {timing(r)}" for form, r in k1_forms.items()]
         + ["K1 against plain: " + ", ".join(
@@ -1170,7 +1294,7 @@ def main() -> int:
     # 7. BSR kernels against their plain versions, at the BSR path's shapes
     t0 = time.perf_counter()
     a_bsp, b_bsp = (block_sparse(s) for s in BSR_SEEDS)
-    bu_sp = sp.random(BSR_N, BSR_N, density=BU_DENSITY, format="csr", random_state=BU_SEED)
+    bu_sp = uniform_bu()
     bsr_report = bsr_kernels(a_bsp, b_bsp, bu_sp)
     report.update(bsr_report)
     k5, k6 = bsr_report["bsr_matmul_dense"], bsr_report["bsr_bsr_matmul_dense"]
@@ -1179,7 +1303,13 @@ def main() -> int:
           f"{(BSR_N // BSR_BLOCK) ** 2} output blocks visited, the rest exactly 0; max abs err "
           f"{k6['max_abs_err']:.2e} | K5 {timing(k5)}; "
           f"{k5['n_a_blocks']} A blocks, {k5['empty_block_rows']} empty block-rows; max abs err "
-          f"{k5['max_abs_err']:.2e}")
+          f"{k5['max_abs_err']:.2e}; parts, one window: split A {k5['parts']['split_a_ms']:.3f} + "
+          f"split B^T {k5['parts']['split_b_ms']:.3f} + GEMM {k5['parts']['gemm_ms']:.3f} ms "
+          f"({k5['parts']['gemm_bound_ms'] / k5['parts']['gemm_ms']:.1%} of its bound) against K5 "
+          f"whole {k5['parts']['whole_ms']:.3f} ms, its GEMM alone bit for bit K5's; device alone "
+          f"(queued) {k5['device_ms']:.3f} ms; against the six passes of its pieces "
+          f"{k5['pieces_rel_err']:.2e} of |A||B| (limit {K5_PIECES_TOL:.0e}; split3's three "
+          f"passes {k5['split3_rel_err']:.2e})")
 
     # 8. BSR path: the requests through the public entry point, counted
     t0 = time.perf_counter()
@@ -1265,6 +1395,15 @@ def main() -> int:
                   **triple_per_request, **inv_per_request}
     path_launches = (launches_main, launches_fast, launches_bsr, launches_fused, launches_triple,
                      launches_inv)
+    k3_shapes = report["csr_to_dense"]["shapes"]
+    for shape in k3_shapes.values():
+        shape["launches"] = 0
+    for label, counts in by_request.items():
+        densified = k3_operands().get(label, ())
+        require(counts["csr_to_dense"] == len(densified),
+                f"{label}: {counts['csr_to_dense']} K3 launches, not one for each of {densified}")
+        for operand in densified:
+            k3_shapes[operand]["launches"] += 1
     for key, (kname, source, replaces) in KERNELS.items():
         r = report[key]
         kernels.append({
@@ -1273,7 +1412,8 @@ def main() -> int:
             "launches_by_request": {label: n[key] for label, n in by_request.items()},
             **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                                  "library_ms")},
-            **{k: r[k] for k in ("forms", "parts") if k in r},
+            **{k: r[k] for k in ("device_ms", "forms", "parts", "shapes", "pieces_rel_err",
+                                 "split3_rel_err") if k in r},
         })
     print(json.dumps({"kernels": kernels}))
     print(smi)

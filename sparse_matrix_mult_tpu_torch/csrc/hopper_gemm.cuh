@@ -1,0 +1,301 @@
+// The split-bf16 tensor-core GEMM core that K1 (triu_matmul.cu) and K5
+// (bsr_spgemm.cu) share, for Hopper (sm_90a).
+//
+// A CTA computes one 128x128 fp32 output tile as the sum over P bf16 pieces
+// of each operand: sum over the passes (pa, pb) of A_pa . B_pb^T, where both
+// operands are K-major (P * rows, k_pad) bf16 arrays behind TMA tensor maps
+// (128 x 64 boxes, 128B swizzle).  P = 3 runs HIGHEST's six passes 20, 11,
+// 02, 10, 01, 00 (a full f32 product); P = 2 runs split3's 10, 01, 00.
+//
+//   * One producer warp starts TMA loads of all P pieces of A's and B's
+//     64-deep K-step into a ring of shared-memory stages (2 of 96 KB for
+//     P = 3, 3 of 64 KB for P = 2), with full/empty mbarriers.
+//   * Two consumer warpgroups each run wgmma m64n128k16 (bf16 in, fp32 out,
+//     both operands from shared memory) on 64 rows of the tile, small terms
+//     first.
+//   * Tensor-core accumulation aligns and truncates; kept in the wgmma
+//     accumulator over a long K that bias leaves the rtol 1e-5 oracle (~3e-5
+//     relative at the triple product's and the inversion's shapes, measured
+//     on an H100).  So the wgmma accumulator holds one K-step only and is
+//     added to an fp32 register accumulator (round to nearest) after each.
+//
+// What differs between the kernels is the schedule, a struct with
+//   int  steps() const           -- the CTA's number of 64-deep K-steps;
+//   int2 a_at(int ks, int p)     -- (K column, row) of A's box of piece p at step ks;
+//   int2 b_at(int ks, int p)     -- the same for B.
+// The kernel picks its output tile, builds its schedule, calls gemm_tile
+// and stores the tile with store_tile.
+
+#pragma once
+
+#include <cuda.h>  // CUtensorMap and its enums; cuTensorMapEncodeTiled is looked up at run time
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kTile = 128;                      // output tile edge, rows of a TMA box
+constexpr int kStep = 64;                       // K depth of a stage: 128 bytes of bf16
+constexpr int kTileBytes = kTile * kStep * 2;   // one piece of one operand in a stage
+constexpr int kConsumerWarps = 8;               // two warpgroups
+constexpr int kGemmThreads = (kConsumerWarps + 1) * 32;  // + one producer warp
+
+template <int P>
+struct Ring {
+  static constexpr int stages = P == 3 ? 2 : 3;
+  static constexpr int stage_bytes = 2 * P * kTileBytes;
+  static constexpr int smem = stages * stage_bytes + 1024 + 2 * stages * 8;
+};
+
+// Pieces of the pass t, small terms first: P = 3 runs 20, 11, 02, 10, 01, 00;
+// P = 2 runs 10 (lh), 01 (hl), 00 (hh).
+__host__ __device__ constexpr int passes(int P) { return P == 3 ? 6 : 3; }
+__host__ __device__ constexpr int pass_a(int P, int t) {
+  return P == 3 ? (t == 0 ? 2 : t == 1 ? 1 : t == 3 ? 1 : 0) : (t == 0 ? 1 : 0);
+}
+__host__ __device__ constexpr int pass_b(int P, int t) {
+  return P == 3 ? (t == 1 ? 1 : t == 2 ? 2 : t == 4 ? 1 : 0) : (t == 1 ? 1 : 0);
+}
+
+// ------------------------------------------------------------ Hopper PTX ----
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
+}
+
+// Returns once the phase of parity `parity` has completed.  A wait that
+// outlasts 2^26 polls (seconds; a stage normally lands in microseconds) traps,
+// so a pipeline fault ends the launch with an error instead of hanging it.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  for (uint32_t polls = 0;; ++polls) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (polls == (1u << 26)) __trap();
+  }
+}
+
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0,
+                                         int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// Shared-memory matrix descriptor of a K-major, 128B-swizzled tile whose
+// 8-row atoms (8 x 128 bytes) lie 1024 bytes apart; the tile is 1024-aligned.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+
+// Keeps the compiler from moving register accesses across the async wgmma.
+__device__ __forceinline__ void fence_regs(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (64 x 128 fp32, spread over the warpgroup) = A (64 x 16) . B^T (16 x 128),
+// plus d itself unless scale_d is 0; A and B bf16, K-major, in shared memory.
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, uint64_t db,
+                                                 int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, "
+      "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+        "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// ------------------------------------------------------------------ core ----
+
+// Runs the schedule's K loop for one 128x128 tile.  Returns true in the 256
+// consumer threads, whose acc then holds their part of the tile (see
+// store_tile), and false in the producer warp.  Needs Ring<P>::smem bytes of
+// dynamic shared memory and kGemmThreads threads.
+template <int P, class Schedule>
+__device__ __forceinline__ bool gemm_tile(const CUtensorMap& map_a, const CUtensorMap& map_b,
+                                          const Schedule& sched, float (&acc)[64]) {
+  using R = Ring<P>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = raw + ((1024 - (raw & 1023)) & 1023);  // 1024-aligned stage ring
+  const uint32_t full = base + R::stages * R::stage_bytes;     // mbarriers, 8 bytes each
+  const uint32_t empty = full + R::stages * 8;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int nk = sched.steps();
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < R::stages; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, kConsumerWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == kConsumerWarps) {  // producer
+    if (lane == 0) {
+      asm volatile("prefetch.tensormap [%0];" ::"l"(reinterpret_cast<uint64_t>(&map_a)) : "memory");
+      asm volatile("prefetch.tensormap [%0];" ::"l"(reinterpret_cast<uint64_t>(&map_b)) : "memory");
+      for (int ks = 0; ks < nk; ++ks) {
+        const int s = ks % R::stages;
+        if (ks >= R::stages) mbar_wait(empty + 8 * s, ((ks / R::stages) - 1) & 1);
+        const uint32_t stage = base + s * R::stage_bytes;
+        mbar_expect_tx(full + 8 * s, R::stage_bytes);
+#pragma unroll
+        for (int p = 0; p < P; ++p) {
+          const int2 at = sched.a_at(ks, p), bt = sched.b_at(ks, p);
+          tma_load(stage + p * kTileBytes, &map_a, full + 8 * s, at.x, at.y);
+          tma_load(stage + (P + p) * kTileBytes, &map_b, full + 8 * s, bt.x, bt.y);
+        }
+      }
+    }
+    return false;
+  }
+
+  // Consumers: warpgroup wg owns rows 64 wg .. 64 wg + 63 of the tile.
+  const int wg = warp / 4;
+  float part[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = part[i] = 0.f;
+
+  for (int ks = 0; ks < nk; ++ks) {
+    const int s = ks % R::stages;
+    mbar_wait(full + 8 * s, (ks / R::stages) & 1);
+    const uint32_t a_tiles = base + s * R::stage_bytes + wg * (kTile / 2) * kStep * 2;
+    const uint32_t b_tiles = base + s * R::stage_bytes + P * kTileBytes;
+    fence_regs(part);
+    wgmma_fence();
+#pragma unroll
+    for (int t = 0; t < passes(P); ++t) {
+      const uint64_t da = smem_desc(a_tiles + pass_a(P, t) * kTileBytes);
+      const uint64_t db = smem_desc(b_tiles + pass_b(P, t) * kTileBytes);
+#pragma unroll
+      for (int kk = 0; kk < kStep / 16; ++kk) {  // 32 bytes further along K each
+        wgmma_m64n128k16(part, da + 2 * kk, db + 2 * kk, (t > 0 || kk > 0) ? 1 : 0);
+      }
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(part);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + 8 * s);
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] += part[i];
+  }
+  return true;
+}
+
+// Stores a consumer thread's part of the tile whose top-left entry is
+// (row0, col0) into c (m x n, row-major), inside the matrix only: register
+// j holds row 16 (warp % 4) + lane / 4 + 8 ((j / 2) % 2) and column
+// 8 (j / 4) + 2 (lane % 4) + j % 2 of its warpgroup's 64 x 128.
+__device__ __forceinline__ void store_tile(const float (&acc)[64], float* __restrict__ c, int m,
+                                           int n, int row0, int col0) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int r0 = row0 + (warp / 4) * 64 + (warp % 4) * 16 + lane / 4;
+  const int c0 = col0 + 2 * (lane % 4);
+  const bool even_n = (n & 1) == 0;
+#pragma unroll
+  for (int j = 0; j < 64; j += 2) {
+    const int r = r0 + 8 * ((j / 2) % 2);
+    const int col = c0 + 8 * (j / 4);
+    if (r < m && col < n) {
+      float* dst = c + (int64_t)r * n + col;
+      if (even_n) {
+        *reinterpret_cast<float2*>(dst) = make_float2(acc[j], acc[j + 1]);
+      } else {
+        dst[0] = acc[j];
+        if (col + 1 < n) dst[1] = acc[j + 1];
+      }
+    }
+  }
+}
+
+// ------------------------------------------------------------------ host ----
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// libcuda's cuTensorMapEncodeTiled, taken through the runtime so the
+// library links the runtime only.
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult status;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
+                                                       cudaEnableDefault, &status);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault,
+                                              &status);
+#endif
+    if (err == cudaSuccess && status == cudaDriverEntryPointSuccess) fn = (EncodeTiled)ptr;
+  }
+  return fn;
+}
+
+// Tensor map of a (rows, k_pad) bf16 array: 128 x 64 boxes, 128B swizzle.
+// Boxes reaching past the array read zeros.
+bool tensor_map(CUtensorMap* map, const void* ptr, int64_t rows, int64_t k_pad) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)k_pad, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)k_pad * 2};
+  const cuuint32_t box[2] = {kStep, kTile};
+  const cuuint32_t elem[2] = {1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims, strides, box,
+            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+}  // namespace

@@ -3,8 +3,9 @@
 ``csrc/*.cu`` compile with ``nvcc`` for ``sm_90a``, one ``nvcc`` per source,
 all started together, and link into one shared library with a plain C
 interface.  The library sits in ``build/smm_torch_kernels/`` next to the
-package and is named by a hash of the sources and flags, so an edited source
-builds anew and an unchanged one loads in milliseconds.
+package and is named by a hash of the flags and of every file under
+``csrc/`` (the ``*.cuh`` headers the sources share included), so an edited
+file builds anew and an unchanged tree loads in milliseconds.
 
 Every C entry point takes device pointers and PyTorch's current stream as
 ``c_void_p`` and returns ``cudaGetLastError()``; :func:`check` raises on a
@@ -50,13 +51,13 @@ _INT = ctypes.c_int
 _SIGNATURES = {
     "smm_split_bf16": [_P, _P, _I64, _I64, _I64, _I64, _INT, _INT, _P],
     "smm_matmul_triu_bf16": [_P, _P, _P, _I64, _I64, _I64, _I64, _I64, _INT, _P],
-    "smm_csr_to_dense_f32": [_P, _P, _P, _P, _I64, _I64, _P],
-    "smm_csr_to_dense_f64": [_P, _P, _P, _P, _I64, _I64, _P],
+    "smm_csr_to_dense_f32": [_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _P],
+    "smm_csr_to_dense_f64": [_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _P],
     "smm_dense_count_f32": [_P, _I64, _I64, _INT, _P, _P],
     "smm_dense_count_f64": [_P, _I64, _I64, _INT, _P, _P],
     "smm_dense_fill_f32": [_P, _I64, _I64, _INT, _P, _I64, _P, _P, _P],
     "smm_dense_fill_f64": [_P, _I64, _I64, _INT, _P, _I64, _P, _P, _P],
-    "smm_bsr_matmul_dense_f32": [_P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _P],
+    "smm_bsr_matmul_dense_bf16": [_P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64, _P],
     "smm_bsr_bsr_matmul_dense_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _P],
     "smm_dense_to_csr_fused_f32": [_P, _I64, _I64, _I64, _I64, _P, _P, _P, _P, _P],
     "smm_dense_to_csr_fused_f64": [_P, _I64, _I64, _I64, _I64, _P, _P, _P, _P, _P],
@@ -70,8 +71,8 @@ def reset_launches() -> None:
         LAUNCHES[key] = 0
 
 
-def _sources() -> list[str]:
-    return sorted(os.path.join(SRC_DIR, f) for f in os.listdir(SRC_DIR) if f.endswith(".cu"))
+def _sources(suffixes: tuple[str, ...] = (".cu",)) -> list[str]:
+    return sorted(os.path.join(SRC_DIR, f) for f in os.listdir(SRC_DIR) if f.endswith(suffixes))
 
 
 def _nvcc() -> str:
@@ -86,7 +87,7 @@ def _nvcc() -> str:
 
 def library_path() -> str:
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in _sources((".cu", ".cuh")):
         with open(src, "rb") as f:
             digest.update(os.path.basename(src).encode() + b"\0" + f.read())
     return os.path.join(BUILD_DIR, f"libsmm_torch_kernels_{digest.hexdigest()[:16]}.so")

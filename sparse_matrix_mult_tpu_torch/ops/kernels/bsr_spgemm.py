@@ -2,7 +2,11 @@
 host pair planner.
 
 * K5 :func:`bsr_matmul_dense` -- BSR A x dense B -> dense; replaces
-  ``sparse_matrix_mult_tpu/ops/pallas/bsr_spgemm.py::_kernel``.
+  ``sparse_matrix_mult_tpu/ops/pallas/bsr_spgemm.py::_kernel``.  On the card
+  it is K1's tensor-core GEMM core with a gathered K, at HIGHEST precision as
+  the JAX kernel: :func:`bsr_split` makes the bf16 pieces of both operands
+  (two ``split_bf16`` launches), :func:`bsr_matmul_dense_pieces` multiplies
+  them (one ``bsr_matmul_dense`` launch).
 * K6 :func:`bsr_bsr_matmul_dense` -- BSR A x BSR B -> dense over the block
   pairs :func:`bsr_pair_plan` lists; replaces ``bsr_spgemm.py::_kernel_bb``.
 
@@ -20,11 +24,15 @@ from ...types import bucket_capacity
 from ...types_bsr import BSRMatrix, _tobsr_padded, bsr_to_dense
 from ..matmul import full_fp32
 from . import _build
+from .triu_matmul import split_bf16
 
 __all__ = [
     "bsr_pair_plan",
+    "bsr_split",
     "bsr_matmul_dense",
     "bsr_matmul_dense_plain",
+    "bsr_matmul_dense_pieces",
+    "bsr_matmul_dense_pieces_plain",
     "bsr_bsr_matmul_dense",
     "bsr_bsr_matmul_dense_plain",
 ]
@@ -113,6 +121,7 @@ def bsr_matmul_dense(a: BSRMatrix, b_dense: torch.Tensor) -> torch.Tensor:
     not read.  The result is (a.shape[0], N); block-rows of A with no stored
     block give zero rows.  Only the first ``block_capacity`` block slots are
     read, also where ``indptr`` counts more blocks (:func:`bsr_from_dense`).
+    On the card: :func:`bsr_split`, then :func:`bsr_matmul_dense_pieces`.
     """
     if b_dense.ndim != 2 or b_dense.shape[0] < a.shape[1]:
         raise ValueError(
@@ -123,12 +132,69 @@ def bsr_matmul_dense(a: BSRMatrix, b_dense: torch.Tensor) -> torch.Tensor:
     (m, k), n = a.shape, int(b_dense.shape[1])
     if max(m, n, b_dense.shape[0]) >= 2**31:
         raise ValueError("bsr_matmul_dense: dimensions must fit in int32")
-    c = torch.empty((m, n), dtype=torch.float32, device=b_dense.device)
+    if m == 0 or n == 0 or k == 0 or a.block_capacity == 0:
+        return torch.zeros((m, n), dtype=torch.float32, device=b_dense.device)
+    return bsr_matmul_dense_pieces(*bsr_split(a, b_dense), a, n)
+
+
+def bsr_split(a: BSRMatrix, b_dense: torch.Tensor):
+    """The bf16 pieces K5's GEMM multiplies (:func:`split_bf16`, three each):
+    A's block slots in rows form, ``(3, cap * b, b)``, and B's first
+    ``a.shape[1]`` rows, transposed, K-major, ``(3, n_pad, a.nbc * b)``
+    with ``n_pad`` N rounded up to 128.  B's rows from ``a.shape[1]`` on are
+    never read; the pieces are zero there."""
+    bsz = a.block_size
+    ap = split_bf16(a.blocks.reshape(a.block_capacity * bsz, bsz), 3)
+    bp = split_bf16(b_dense[: a.shape[1]], 3, transpose=True, k_pad=a.nbc * bsz)
+    return ap, bp
+
+
+def _check_pieces(ap: torch.Tensor, bp: torch.Tensor, a: BSRMatrix, n: int) -> None:
+    bsz, cap = a.block_size, a.block_capacity
+    if ap.shape != (3, cap * bsz, bsz) or bp.ndim != 3 or bp.shape[0] != 3:
+        raise ValueError(f"A's pieces must be (3, {cap * bsz}, {bsz}) and B's (3, n_pad, k_pad), "
+                         f"got {tuple(ap.shape)} and {tuple(bp.shape)}")
+    if bp.shape[2] != a.nbc * bsz or bp.shape[1] % 128 or not 0 <= n <= bp.shape[1]:
+        raise ValueError(f"B's pieces {tuple(bp.shape)} do not fit A {a.shape} and n = {n} "
+                         "(bsr_split)")
+
+
+def bsr_matmul_dense_pieces_plain(ap: torch.Tensor, bp: torch.Tensor, a: BSRMatrix,
+                                  n: int) -> torch.Tensor:
+    """The six passes of the pieces, summed in f32 over A's stored blocks."""
+    m, k = a.shape
+    c = torch.zeros((m, n), dtype=torch.float32, device=ap.device)
+    blocks = ap.reshape(3, a.block_capacity, a.block_size, a.block_size).to(torch.float32)
+    with full_fp32():  # bf16 x bf16 products are exact in f32
+        for i in range(3):
+            ai = bsr_to_dense(BSRMatrix(indptr=a.indptr, indices=a.indices, blocks=blocks[i],
+                                        shape=a.shape))
+            for j in range(3 - i):  # the passes whose pieces' orders sum below 3
+                c += torch.matmul(ai, bp[j, :n, :k].to(torch.float32).T)
+    return c
+
+
+def bsr_matmul_dense_pieces(ap: torch.Tensor, bp: torch.Tensor, a: BSRMatrix,
+                            n: int) -> torch.Tensor:
+    """K5's GEMM alone, on the pieces :func:`bsr_split` made of ``a`` and of
+    B: the (a.shape[0], n) product, every entry written."""
+    _check_pieces(ap, bp, a, n)
+    if not _build.is_cuda(ap, bp, a.indptr, a.indices):
+        return bsr_matmul_dense_pieces_plain(ap, bp, a, n)
+    if ap.dtype != torch.bfloat16 or bp.dtype != torch.bfloat16:
+        raise TypeError("bsr_matmul_dense_pieces takes bfloat16 pieces")
+    if a.block_size != KERNEL_BLOCK:
+        raise ValueError(f"the CUDA bsr_matmul_dense kernel takes {KERNEL_BLOCK}x{KERNEL_BLOCK} "
+                         f"blocks, got {a.block_size}")
+    if not (ap.is_contiguous() and bp.is_contiguous()):
+        raise ValueError("bsr_matmul_dense_pieces takes contiguous pieces")
+    m = a.shape[0]
+    c = torch.empty((m, n), dtype=torch.float32, device=ap.device)
     if m == 0 or n == 0:
         return c
-    code = _build.load().smm_bsr_matmul_dense_f32(
-        a.indptr.data_ptr(), a.indices.data_ptr(), a.blocks.data_ptr(), b_dense.data_ptr(),
-        c.data_ptr(), a.nbr, a.block_capacity, m, k, n, _build.stream_ptr(b_dense.device),
+    code = _build.load().smm_bsr_matmul_dense_bf16(
+        a.indptr.data_ptr(), a.indices.data_ptr(), ap.data_ptr(), bp.data_ptr(), c.data_ptr(),
+        a.nbr, a.block_capacity, m, n, bp.shape[1], bp.shape[2], _build.stream_ptr(ap.device),
     )
     _build.LAUNCHES["bsr_matmul_dense"] += 1
     _build.check(code, "bsr_matmul_dense")

@@ -2,7 +2,10 @@
 ``csrc/convert_fused.cu``) and their plain PyTorch versions.
 
 * K3 :func:`csr_to_dense` -- replaces
-  ``sparse_matrix_mult_tpu/ops/pallas/convert_kernels.py::_distribute_kernel``.
+  ``sparse_matrix_mult_tpu/ops/pallas/convert_kernels.py::_distribute_kernel``:
+  persistent CTAs, each over a contiguous range of flat tiles of the output,
+  write each tile once, from a zeroed shared buffer, with asynchronous bulk
+  copies (:func:`_densify_tiling`).
 * K4 :func:`dense_to_csr` and K2 :func:`dense_to_csr` with ``triu=True`` --
   one templated kernel pair replacing ``_concentrate_kernel`` and
   ``_concentrate_payload_kernel`` (the staircase extraction).
@@ -24,6 +27,7 @@ kept entry, and ``indptr`` counting kept entries only (clamped at
 
 from __future__ import annotations
 
+import functools
 import operator
 
 import torch
@@ -45,6 +49,9 @@ __all__ = [
 _FLOATS = {torch.float32: "f32", torch.float64: "f64"}
 
 LANE = 8192  # default flat-row length of the fused conversions (the JAX default)
+
+DENSIFY_BUFFER = 32768  # bytes of one of a K3 CTA's two shared buffers: a tile's most
+DENSIFY_CTAS_PER_SM = 3  # K3's persistent CTAs per SM (two buffers each)
 
 
 def _check_csr(indptr, indices, values, shape):
@@ -72,6 +79,32 @@ def csr_to_dense_plain(indptr, indices, values, shape) -> torch.Tensor:
     return dense
 
 
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+@functools.lru_cache(maxsize=256)
+def _densify_tiling(m: int, n: int, itemsize: int, sms: int):
+    """K3's flat tiles of the row-major (m, n) output: ``(tile_elems,
+    per_cta, ctas)``.  Tile t covers elements ``[t * tile_elems, min((t + 1)
+    * tile_elems, m * n))``; a tile is a multiple of 128 bytes (so every
+    start is 16-byte aligned) and at most ``DENSIFY_BUFFER`` bytes, one
+    shared buffer; a small matrix gets smaller tiles, so that its tiles
+    still spread over the ``sms`` SMs.  CTA b walks the ``per_cta``
+    consecutive tiles from ``b * per_cta`` (the last CTA may have fewer,
+    none has none), so each tile's run of entries starts where the previous
+    one's ended.  Cached: the main path densifies a few shapes many times."""
+    most = sms * DENSIFY_CTAS_PER_SM
+    total = m * n * itemsize
+    per_cta_bytes = -(-total // most)
+    tile_bytes = min(DENSIFY_BUFFER, max(128, -(-per_cta_bytes // 128) * 128))
+    tile_elems = tile_bytes // itemsize
+    n_tiles = -(-(m * n) // tile_elems)
+    per_cta = -(-n_tiles // most)
+    return tile_elems, per_cta, -(-n_tiles // per_cta)
+
+
 def csr_to_dense(indptr, indices, values, shape) -> torch.Tensor:
     """Dense (m, n) matrix of sorted, duplicate-free padded CSR (K3).
 
@@ -81,12 +114,14 @@ def csr_to_dense(indptr, indices, values, shape) -> torch.Tensor:
     _check_csr(indptr, indices, values, (m, n))
     if not _build.is_cuda(indptr, indices, values):
         return csr_to_dense_plain(indptr, indices, values, (m, n))
-    lib = _build.load()
     dense = torch.empty((m, n), dtype=values.dtype, device=values.device)
-    fn = getattr(lib, f"smm_csr_to_dense_{_FLOATS[values.dtype]}")
-    code = fn(
+    if m * n == 0:
+        return dense
+    tile_elems, per_cta, ctas = _densify_tiling(m, n, values.element_size(),
+                                                _sm_count(values.device))
+    code = getattr(_build.load(), f"smm_csr_to_dense_{_FLOATS[values.dtype]}")(
         indptr.data_ptr(), indices.data_ptr(), values.data_ptr(), dense.data_ptr(),
-        m, n, _build.stream_ptr(values.device),
+        m, n, tile_elems, per_cta, ctas, _build.stream_ptr(values.device),
     )
     _build.LAUNCHES["csr_to_dense"] += 1
     _build.check(code, "csr_to_dense")

@@ -46,9 +46,18 @@ def _split_shape(x: torch.Tensor, transpose: bool):
     return (x.shape[1], x.shape[0]) if transpose else (x.shape[0], x.shape[1])
 
 
-def split_bf16_plain(x: torch.Tensor, pieces: int, transpose: bool = False) -> torch.Tensor:
+def _split_k_pad(k: int, k_pad: int | None) -> int:
+    if k_pad is None:
+        return _pad(max(k, 1), KSTEP)
+    if k_pad < k or k_pad <= 0 or k_pad % KSTEP:
+        raise ValueError(f"k_pad must be a positive multiple of {KSTEP} and >= {k}, got {k_pad}")
+    return k_pad
+
+
+def split_bf16_plain(x: torch.Tensor, pieces: int, transpose: bool = False,
+                     k_pad: int | None = None) -> torch.Tensor:
     rows, k = _split_shape(x, transpose)
-    out = torch.zeros((pieces, _pad(rows, TILE), _pad(max(k, 1), KSTEP)), dtype=torch.bfloat16,
+    out = torch.zeros((pieces, _pad(rows, TILE), _split_k_pad(k, k_pad)), dtype=torch.bfloat16,
                       device=x.device)
     rest = (x.T if transpose else x).to(torch.float32)
     for p in range(pieces):
@@ -58,23 +67,25 @@ def split_bf16_plain(x: torch.Tensor, pieces: int, transpose: bool = False) -> t
     return out
 
 
-def split_bf16(x: torch.Tensor, pieces: int, transpose: bool = False) -> torch.Tensor:
+def split_bf16(x: torch.Tensor, pieces: int, transpose: bool = False,
+               k_pad: int | None = None) -> torch.Tensor:
     """The bf16 pieces of the f32 operand ``x`` (or of ``x.T`` with
     ``transpose``), K-major: a (pieces, rows_pad, k_pad) array, rows padded
-    to :data:`TILE` and K to :data:`KSTEP` with zeros.  Each piece is the bf16
-    rounding of what the pieces before it left, so three pieces hold an f32
-    exactly and two are JAX's ``hi``/``lo`` halves."""
+    to :data:`TILE` and K to :data:`KSTEP` (or to ``k_pad``, a multiple of
+    it) with zeros.  Each piece is the bf16 rounding of what the pieces
+    before it left, so three pieces hold an f32 exactly and two are JAX's
+    ``hi``/``lo`` halves."""
     if pieces not in (2, 3):
         raise ValueError(f"split_bf16 makes 2 or 3 pieces, not {pieces}")
     rows, k = _split_shape(x, transpose)
+    k_pad = _split_k_pad(k, k_pad)
     if not _build.is_cuda(x):
-        return split_bf16_plain(x, pieces, transpose)
+        return split_bf16_plain(x, pieces, transpose, k_pad)
     if x.dtype != torch.float32:
         raise TypeError("the CUDA split_bf16 kernel takes a float32 matrix")
     if not x.is_contiguous():
         raise ValueError("split_bf16 takes a contiguous matrix")
-    out = torch.empty((pieces, _pad(rows, TILE), _pad(max(k, 1), KSTEP)), dtype=torch.bfloat16,
-                      device=x.device)
+    out = torch.empty((pieces, _pad(rows, TILE), k_pad), dtype=torch.bfloat16, device=x.device)
     code = _build.load().smm_split_bf16(
         x.data_ptr(), out.data_ptr(), rows, k, out.shape[1], out.shape[2], pieces,
         int(transpose), _build.stream_ptr(x.device),

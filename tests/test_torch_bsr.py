@@ -25,6 +25,7 @@ from sparse_matrix_mult_tpu.ops.pallas.bsr_spgemm import bsr_matmul_dense as jax
 from sparse_matrix_mult_tpu.ops.pallas.bsr_spgemm import bsr_pair_plan as jax_pair_plan
 from sparse_matrix_mult_tpu_torch import api
 from sparse_matrix_mult_tpu_torch.ops.kernels import bsr_spgemm as kb
+from sparse_matrix_mult_tpu_torch.ops.kernels import triu_matmul as tm
 
 RTOL = 1e-5  # of |A| @ |B|, elementwise: f32 products summed in another order
 PLAN_KEYS = ("pa", "pb", "ci", "cj", "first")
@@ -256,6 +257,72 @@ def test_bsr_matmul_dense_plain_on_a_truncated_container_matches_pallas():
     _within(got[:kept], want[:kept], bound[:kept], "K5 plain vs Pallas, truncated")
     _within(got, stored.astype(np.float64) @ bd.astype(np.float64), bound, "K5 plain vs f64")
     assert np.all(got[kept:] == 0)
+
+
+def _k5_containers(case):
+    """(JAX container, port container, A as stored, B) of a K5 case; the
+    truncated case keeps 5 of 12 blocks (block-rows 0 and 1 only)."""
+    if case == "truncated":
+        ad = block_sparse(3, 4, 1.0, seed=34)
+        bd = np.random.default_rng(8).standard_normal((4 * 128, 200)).astype(np.float32)
+        jc = jsmm.bsr_from_dense(jnp.asarray(ad), 5)
+    else:
+        ad, bd = _k5_operands(case)
+        jc = jsmm.bsr_from_scipy(sp.csr_matrix(ad), 128, dtype=jnp.float32)
+    pc = _port(jc)
+    return jc, pc, tsmm.bsr_to_dense(pc).numpy(), bd
+
+
+@pytest.mark.parametrize("case", CASES + ["ragged", "empty_block_rows", "truncated"])
+def test_bsr_matmul_dense_pieces_plain_matches_pallas(case):
+    """K5's GEMM alone (its plain version: the six passes of the bf16
+    pieces over A's stored blocks) on bsr_split's pieces, against the
+    Pallas K5 (HIGHEST) and the f64 product.  The Pallas kernel leaves the
+    block-rows past a truncated capacity unwritten, so there the port must
+    give zeros instead."""
+    jc, pc, stored, bd = _k5_containers(case)
+    want = np.asarray(jax_k5(jc, jnp.asarray(bd)))
+    ap, bp = kb.bsr_split(pc, torch.from_numpy(bd))
+    got = kb.bsr_matmul_dense_pieces(ap, bp, pc, bd.shape[1])
+    assert got.dtype == torch.float32 and tuple(got.shape) == want.shape
+    got = got.numpy()
+    bound = _bound(stored, bd)
+    kept = 2 * 128 if case == "truncated" else got.shape[0]
+    _within(got[:kept], want[:kept], bound[:kept], "K5 pieces vs Pallas")
+    _within(got, stored.astype(np.float64) @ bd.astype(np.float64), bound, "K5 pieces vs f64")
+    assert np.all(got[kept:] == 0)
+    empty_rows = np.repeat(np.diff(np.asarray(jc.indptr)) == 0, 128)[: got.shape[0]]
+    assert np.all(got[empty_rows] == 0)
+
+
+def test_bsr_split_reads_only_the_rows_it_needs():
+    """B with NaN rows from A's column count on: B's pieces are zero there
+    (K = 300 of A's 384 padded columns), and A's pieces hold its blocks
+    exactly."""
+    ad, bd = _k5_operands("ragged")  # A is 200 x 300
+    pc = tsmm.bsr_from_scipy(sp.csr_matrix(ad), 128, dtype=torch.float32, device="cpu")
+    extra = np.vstack([bd, np.full((60, bd.shape[1]), np.nan, np.float32)])
+    ap, bp = kb.bsr_split(pc, torch.from_numpy(extra))
+    assert tuple(ap.shape) == (3, pc.block_capacity * 128, 128)
+    assert tuple(bp.shape) == (3, 256, 3 * 128)
+    assert not torch.isnan(bp.float()).any()
+    assert bool((bp[:, :, 300:] == 0).all()) and bool((bp[:, 190:] == 0).all())
+    assert torch.equal(bp, tm.split_bf16(torch.from_numpy(bd), 3, transpose=True, k_pad=384))
+    whole = ap.float().sum(dim=0).reshape(pc.blocks.shape)
+    assert torch.equal(whole, pc.blocks)  # three pieces hold an f32 exactly
+
+
+def test_bsr_matmul_dense_pieces_rejects_mismatched_pieces():
+    ad, bd = _k5_operands("ragged")
+    pc = tsmm.bsr_from_scipy(sp.csr_matrix(ad), 128, dtype=torch.float32, device="cpu")
+    ap, bp = kb.bsr_split(pc, torch.from_numpy(bd))
+    with pytest.raises(ValueError):  # K padded to 320, not to A's 384 columns
+        kb.bsr_matmul_dense_pieces(ap, tm.split_bf16(torch.from_numpy(bd), 3, transpose=True),
+                                   pc, bd.shape[1])
+    with pytest.raises(ValueError):  # more columns than the pieces hold
+        kb.bsr_matmul_dense_pieces(ap, bp, pc, 257)
+    with pytest.raises(ValueError):  # two pieces
+        kb.bsr_matmul_dense_pieces(ap[:2], bp[:2], pc, bd.shape[1])
 
 
 def _jax_k6(jca, jcb, plan):

@@ -53,6 +53,46 @@ def test_csr_to_dense_kernel(cuda, m, n, dtype):
     assert torch.equal(got, ck.csr_to_dense_plain(c.indptr, c.indices, c.values, c.shape))
 
 
+# K3's edges: n not a multiple of 4 (f32) or 2 (f64), rows wider than a 32 KB
+# tile, m n not a multiple of the tile (a ragged tail below 16 bytes), m or
+# n = 1, many narrow rows in one tile.
+K3_EDGE_SHAPES = [(3, 9999), (5, 12_345), (2, 40_003), (100_001, 1), (1, 100_001), (7, 13),
+                  (1000, 33), (4097, 3), (1, 1)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("m,n", K3_EDGE_SHAPES)
+def test_csr_to_dense_kernel_edges(cuda, m, n, dtype):
+    """K3 bit for bit against its plain version and K8 at its tiling's
+    edges; the entries past indptr[m] hold garbage (indices off the matrix,
+    NaN values) that must never be read."""
+    a = sp.random(m, n, density=0.2, format="csr", random_state=m + n)
+    c = tsmm.from_scipy(a, dtype=dtype, device=cuda)
+    indices, values = c.indices.clone(), c.values.clone()
+    indices[a.nnz:] = 2**31 - 1
+    values[a.nnz:] = float("nan")
+    before = LAUNCHES["csr_to_dense"]
+    got = ck.csr_to_dense(c.indptr, indices, values, c.shape)
+    torch.cuda.synchronize()
+    assert LAUNCHES["csr_to_dense"] == before + 1
+    assert torch.equal(got, ck.csr_to_dense_plain(c.indptr, indices, values, c.shape))
+    assert torch.equal(got, ck.csr_to_dense_fused(c.indptr, c.indices, c.values, c.shape))
+    assert torch.equal(got.cpu(), torch.from_numpy(a.toarray()).to(dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_csr_to_dense_kernel_on_an_empty_matrix(cuda, dtype):
+    """No entries: every element written, as zero, over many tiles; a
+    garbage-filled container past indptr[m] = 0 changes nothing."""
+    m, n = 700, 3001
+    indptr = torch.zeros(m + 1, dtype=torch.int32, device=cuda)
+    indices = torch.full((64,), 5, dtype=torch.int32, device=cuda)
+    values = torch.full((64,), float("nan"), dtype=dtype, device=cuda)
+    got = ck.csr_to_dense(indptr, indices, values, (m, n))
+    assert got.shape == (m, n) and not bool(got.any())
+    assert torch.equal(got, ck.csr_to_dense_fused(indptr, indices, values, (m, n)))
+
+
 @pytest.mark.parametrize("truncate", [False, True])
 @pytest.mark.parametrize("triu", [False, True])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -275,20 +315,43 @@ def _k5_operands(case):
     return ad, rng.standard_normal((ad.shape[1], 333)).astype(np.float32)
 
 
-@pytest.mark.parametrize("case", [(1, 1, 1.0), (3, 4, 0.5), (5, 3, 0.6), "ragged",
+# (block-rows, block-columns, occupancy); (2, 7, 1.0) runs block-rows of 7
+# blocks, 14 K-steps through a ring of 2 stages.
+@pytest.mark.parametrize("case", [(1, 1, 1.0), (3, 4, 0.5), (5, 3, 0.6), (2, 7, 1.0), "ragged",
                                   "empty_block_rows"])
 def test_bsr_matmul_dense_kernel(cuda, case):
+    """K5 (two splits and the GEMM) within 1e-5 (|A| |B|) of its plain
+    version, empty block-rows exactly zero; its GEMM alone on the pieces
+    gives the same bits."""
     ad, bd = _k5_operands(case)
     a = _bsr(ad, cuda)
     b = torch.from_numpy(bd).to(cuda)
-    before = LAUNCHES["bsr_matmul_dense"]
+    before = dict(LAUNCHES)
     got = kb.bsr_matmul_dense(a, b)
     torch.cuda.synchronize()
-    assert LAUNCHES["bsr_matmul_dense"] == before + 1
+    assert LAUNCHES["bsr_matmul_dense"] == before["bsr_matmul_dense"] + 1
+    assert LAUNCHES["split_bf16"] == before["split_bf16"] + 2
     assert got.shape == (ad.shape[0], bd.shape[1])
     _assert_within_bound(got, kb.bsr_matmul_dense_plain(a, b), ad, bd, cuda)
     empty = np.repeat(np.diff(a.indptr.cpu().numpy()) == 0, 128)[: ad.shape[0]]
     assert bool((got[torch.from_numpy(empty).to(cuda)] == 0).all())
+    ap, bp = kb.bsr_split(a, b)
+    assert torch.equal(kb.bsr_matmul_dense_pieces(ap, bp, a, bd.shape[1]), got)
+    _assert_within_bound(kb.bsr_matmul_dense_pieces_plain(ap, bp, a, bd.shape[1]), got, ad, bd,
+                         cuda)
+
+
+def test_bsr_matmul_dense_kernel_is_highest(cuda):
+    """K5 at HIGHEST, like K1: non-negative operands (no cancellation), max
+    |got - ref| / |ref| against the f64 product at most 1e-6 over K = 896."""
+    rng = np.random.default_rng(35)
+    ad = np.abs(_block_sparse(4, 7, 0.5, seed=35))
+    bd = rng.random((7 * 128, 300)).astype(np.float32)
+    got = kb.bsr_matmul_dense(_bsr(ad, cuda), torch.from_numpy(bd).to(cuda)).double()
+    ref = torch.from_numpy(ad.astype(np.float64) @ bd.astype(np.float64)).to(cuda)
+    live = ref > 0
+    assert bool((got[~live] == 0).all())
+    assert float(((got - ref).abs()[live] / ref[live]).max()) <= 1e-6
 
 
 def test_bsr_matmul_dense_kernel_on_a_truncated_container(cuda):

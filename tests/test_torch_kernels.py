@@ -2,7 +2,7 @@
 package's Pallas kernels run in interpret mode, on identical inputs.
 
 K1 matmul_triu (both branches), K3 csr_to_dense, K4 dense_to_csr and K2
-dense_to_csr_triu.
+dense_to_csr_triu; and K3's flat tiling, which the CUDA kernel walks.
 The CUDA versions are held against these plain versions on the card
 (tests/test_torch_cuda.py, chip_smoke.py).
 """
@@ -154,3 +154,35 @@ def test_wrappers_reject_other_devices_and_types():
     with pytest.raises(TypeError):
         ck.csr_to_dense(torch.zeros(5, dtype=torch.int64), torch.zeros(4, dtype=torch.int32),
                         torch.zeros(4), (4, 4))
+
+
+# (m, n, itemsize, SMs): n not a multiple of 4 (f32) or 2 (f64), rows wider
+# than a 32 KB tile, m * n not a multiple of the tile, m or n = 1, and the
+# main path's shapes (the 10k operand, the inversion's H and Q).
+TILING_CASES = [
+    (1, 1, 4, 132), (1, 1, 8, 132), (7, 13, 4, 132), (7, 13, 8, 132), (3, 9999, 4, 132),
+    (5, 12_345, 8, 132), (100_001, 1, 4, 132), (1, 100_001, 8, 132), (1000, 33, 4, 4),
+    (10_000, 10_000, 4, 132), (4096, 16_384, 4, 132), (16_384, 16_384, 4, 132),
+    (12_289, 12_287, 8, 132), (64, 64, 4, 1),
+]
+
+
+@pytest.mark.parametrize("m,n,itemsize,sms", TILING_CASES)
+def test_densify_tiling_covers_the_output_once(m, n, itemsize, sms):
+    """K3's tiles cover [0, m n) once, in order, each CTA a contiguous range
+    of them; every start is 16-byte aligned, no tile exceeds a shared
+    buffer, and no CTA is left without a tile."""
+    tile, per_cta, ctas = ck._densify_tiling(m, n, itemsize, sms)
+    assert tile > 0 and tile * itemsize <= ck.DENSIFY_BUFFER
+    assert (tile * itemsize) % 16 == 0  # tile t starts at t * tile * itemsize bytes
+    n_tiles = -(-(m * n) // tile)
+    starts = np.arange(n_tiles, dtype=np.int64) * tile
+    ends = np.minimum(starts + tile, m * n)
+    assert starts[0] == 0 and ends[-1] == m * n
+    assert np.all(ends > starts) and np.all(starts[1:] == ends[:-1])
+    owned = [range(b * per_cta, min((b + 1) * per_cta, n_tiles)) for b in range(ctas)]
+    assert all(len(r) > 0 for r in owned) and sum(map(len, owned)) == n_tiles
+    assert 1 <= ctas <= min(n_tiles, sms * ck.DENSIFY_CTAS_PER_SM)
+    if m * n * itemsize >= sms * ck.DENSIFY_CTAS_PER_SM * ck.DENSIFY_BUFFER:
+        assert tile * itemsize == ck.DENSIFY_BUFFER
+        assert ctas > (sms * ck.DENSIFY_CTAS_PER_SM) // 2

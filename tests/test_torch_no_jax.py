@@ -31,12 +31,15 @@ def test_import_leaves_jax_unloaded():
 
 
 def _port_modules():
-    """The port's modules, and the script that drives it on the card."""
+    """The port's modules, the script that drives it on the card and the
+    tools that run it there."""
     for dirpath, _, files in os.walk(PORT):
         for f in files:
             if f.endswith(".py"):
                 yield os.path.join(dirpath, f)
     yield os.path.join(ROOT, "chip_smoke.py")
+    tools = os.path.join(ROOT, "tools")
+    yield from (os.path.join(tools, f) for f in os.listdir(tools) if f.endswith(".py"))
 
 
 @pytest.mark.parametrize("path", sorted(_port_modules()), ids=lambda p: os.path.relpath(p, ROOT))
