@@ -7,8 +7,8 @@ Phases, one line each:
   1. card    -- device name, nvidia-smi name/power limit, TF32 switched off;
   2. build   -- nvcc builds csrc/*.cu from the checkout (ptxas report shown),
                 and the HGMMA (tensor-core) and UTMALDG (TMA) instructions of
-                K1 and K5 and the UBLKCP (bulk copy) instructions of K3 are
-                counted in the SASS (cuobjdump -sass);
+                K1, K5 and K6 and the UBLKCP (bulk copy) instructions of K3
+                are counted in the SASS (cuobjdump -sass);
   3. kernels -- each hand-written kernel against its plain PyTorch version
                 on the card, at the shapes the main path gives it, with both
                 times, the largest difference, the kernel's bound (bytes or
@@ -45,18 +45,26 @@ Phases, one line each:
   7. bsr-kernels -- K5 and K6 against their plain versions at the BSR
                 path's shapes (8192^2, 128^2 blocks, 10% of them occupied):
                 both times, the largest difference, unvisited blocks zero;
-                K5's GEMM alone bit for bit K5's, K5 within 1e-6 of (|A| |B|)
-                of the six passes of its pieces (split3's three passes shown
-                outside that limit), and K5's two splits and its GEMM timed
-                in one window;
+                each one's GEMM alone bit for bit its whole call's, each
+                within 1e-6 of (|A| |B|) of the six passes of its pieces
+                (split3's three passes shown outside that limit for K5),
+                K6's run bounds bit for bit against their plain version, and
+                each one's splits, K6's run check and each GEMM timed in one
+                window;
   8. bsr-main -- the BSR path: four requests through sparse_matrix_multiply
                 with block-sparse A, counts zeroed just before and read just
                 after: A x B (K6), symmetric (K6, K2), A x uniform B_u (K3,
-                split_bf16 x2, K5) and dense output (K6).  Route "bsr", launches per
-                request, and each result against an f64 oracle on the card;
+                split_bf16 x2, K5) and dense output (K6); each K6 request
+                splits twice and checks its pair tables once.  Route "bsr",
+                launches per request, and each result against an f64 oracle
+                on the card;
   9. bsr-timing -- requests 1 and 3 end to end on the BSR route and, with
                 use_bsr=False, on the dense route, warm, min of 3; and
                 request 1's time per stage;
+     bsr-crossover -- request 1's form (A x B, sparse output) with A at
+                block occupancies 0.02, 0.05, 0.10 and 0.25 (B the 10% one),
+                end to end on the BSR route (force_bsr) and on the dense
+                route (use_bsr=False), min of 3 each;
  10. fused-kernels -- the fused conversions' path, counted: K7
                 (dense_to_csr_fused) on the 12,288^2 sibling product and the
                 full 10k headline product, K8 (csr_to_dense_fused) on the
@@ -83,7 +91,7 @@ Phases, one line each:
 
 Then a JSON line of the kernels (launches summed over the six counted paths;
 K3 also by shape).  A kernel's "ms" is its whole call on an idle stream, the
-wrapper's host work included; K3 and K5 add "device_ms", the same call with
+wrapper's host work included; K3, K5 and K6 add "device_ms", the same call with
 a spin kernel queued before it, which leaves the device's time alone.  Then
 the nvidia-smi line, and last {"ok": true, "device": {...}}.  Any failed
 check exits non-zero; without a CUDA device, or without the package beside
@@ -122,6 +130,7 @@ SIB_N, SIB_DENSITY = 12_288, 0.006  # dense route, ~36% dense product
 # (8192^2, 128^2 blocks, 10% occupied, dense standard-normal blocks), and a
 # uniformly sparse B_u whose every block is occupied.
 BSR_N, BSR_BLOCK, BSR_OCC, BSR_SEEDS = 8192, 128, 0.10, (21, 22)
+CROSSOVER_OCCS = (0.02, 0.05, 0.10, 0.25)  # A's block occupancies of the crossover phase
 BU_DENSITY, BU_SEED = 0.01, 23
 FUSED_LANES = (2048, 8192, 16384)  # K7 must give the same output at each
 TRIPLE_Q_SEED = 3  # Q of the triple product: N^2, DENSITY (benchmarks/run.py:275-277)
@@ -135,8 +144,9 @@ RTOL, ATOL = 1e-5, 1e-8  # the reference's oracle tolerance
 # from HIGHEST's and that its f64-oracle error is well above HIGHEST's (3b).
 K1_BRANCHES = ("highest", "split3")
 SPLIT3_ERR_RATIO = 2.0  # split3's max rel err vs f64 at least this times HIGHEST's
-# K5 against the six passes of its own pieces, in units of |A| |B| (K ~ 830:
-# f32 rounding is far below it, the three passes of split3 ~3e-6 above it).
+# K5 and K6 against the six passes of their own pieces, in units of |A| |B|
+# (K5's K ~ 830: f32 rounding is far below it, the three passes of split3
+# ~3e-6 above it).
 K5_PIECES_TOL = 1e-6
 # K1's split3 branch against the f64 oracle at the configurations of
 # benchmarks/results_accuracy_tpu.json (seeds 1 and 2, as benchmarks/accuracy.py).
@@ -170,6 +180,9 @@ KERNELS = {
     "bsr_bsr_matmul_dense": ("K6 bsr_bsr_matmul_dense",
                              "sparse_matrix_mult_tpu_torch/csrc/bsr_spgemm.cu",
                              "sparse_matrix_mult_tpu/ops/pallas/bsr_spgemm.py:193"),
+    "bsr_pair_runs": ("bsr_pair_runs (K6's table check and run bounds)",
+                      "sparse_matrix_mult_tpu_torch/csrc/bsr_spgemm.cu",
+                      "sparse_matrix_mult_tpu/ops/pallas/bsr_spgemm.py:196"),
     "dense_to_csr_fused": ("K7 dense_to_csr_fused",
                            "sparse_matrix_mult_tpu_torch/csrc/convert_fused.cu",
                            "sparse_matrix_mult_tpu/ops/pallas/convert_kernels.py:617"),
@@ -189,12 +202,12 @@ MAIN_REQUESTS = (
 )
 
 # The BSR path's requests: (label, B operand, keywords, kernels it must launch).
+K6_PATH = ("split_bf16", "bsr_pair_runs", "bsr_bsr_matmul_dense")  # a K6 call's kernels
 BSR_REQUESTS = (
-    ("bsr_x_bsr_8192", "b", dict(), ("bsr_bsr_matmul_dense",)),
-    ("bsr_x_bsr_symmetric_8192", "b", dict(symmetric=True),
-     ("bsr_bsr_matmul_dense", "dense_to_csr_triu")),
+    ("bsr_x_bsr_8192", "b", dict(), K6_PATH),
+    ("bsr_x_bsr_symmetric_8192", "b", dict(symmetric=True), K6_PATH + ("dense_to_csr_triu",)),
     ("bsr_x_dense_8192", "bu", dict(), ("csr_to_dense", "split_bf16", "bsr_matmul_dense")),
-    ("bsr_dense_output_8192", "b", dict(output_format="dense"), ("bsr_bsr_matmul_dense",)),
+    ("bsr_dense_output_8192", "b", dict(output_format="dense"), K6_PATH),
 )
 
 
@@ -375,12 +388,12 @@ def same_csr(got, ref, what: str) -> float:
     return float(np.abs(got.data - ref.data).max()) if got.nnz else 0.0
 
 
-def block_sparse(seed: int):
-    """BSR_N^2 scipy CSR with BSR_OCC of its BSR_BLOCK^2 blocks occupied, each
+def block_sparse(seed: int, occ: float = BSR_OCC):
+    """BSR_N^2 scipy CSR with ``occ`` of its BSR_BLOCK^2 blocks occupied, each
     dense with standard-normal f32 values (benchmarks/run.py:579-596)."""
     nb = BSR_N // BSR_BLOCK
     r = np.random.default_rng(seed)
-    bi, bj = np.nonzero(r.random((nb, nb)) < BSR_OCC)
+    bi, bj = np.nonzero(r.random((nb, nb)) < occ)
     blocks = r.standard_normal((len(bi), BSR_BLOCK, BSR_BLOCK)).astype(np.float32)
     shape3 = blocks.shape
     rows = np.broadcast_to(bi[:, None, None] * BSR_BLOCK + np.arange(BSR_BLOCK)[None, :, None],
@@ -404,9 +417,31 @@ def csr_on_card(mat) -> torch.Tensor:
     return dense
 
 
+def kernel_device_us(fn, runs: int = 3) -> dict:
+    """Device microseconds per call of ``fn``, by kernel (and copy), from
+    ``torch.profiler``'s trace of ``runs`` warm calls: where a call's device
+    time goes."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_time_total > 0:
+            # "void (anonymous namespace)::fill_rows<float, true>(float const*, ...)"
+            name = e.key.split("namespace)::")[-1].split("(")[0].strip()
+            out[name] = out.get(name, 0.0) + e.device_time_total / runs
+    return out
+
+
 def compare_extract(c: torch.Tensor, triu: bool):
     """Kernel K2/K4 against the plain version on one matrix: both times, the
-    nnz and the largest difference of the values."""
+    nnz and the largest difference of the values, the call's device time
+    alone and by kernel."""
     nnz = int(torch.count_nonzero(torch.triu(c) if triu else c))
     cap = smt.bucket_capacity(nnz)
     got = ck.dense_to_csr(c, cap, triu=triu)
@@ -421,6 +456,8 @@ def compare_extract(c: torch.Tensor, triu: bool):
     m, n = c.shape
     read = m * (m + 1) // 2 if triu else m * n  # K2 reads the upper triangle only
     return dict(ms=ms, plain_ms=plain_ms, nnz=nnz, max_abs_err=err, library_ms=lib,
+                device_ms=event_ms(lambda: ck.dense_to_csr(c, cap, triu=triu), queued=True),
+                kernels_us=kernel_device_us(lambda: ck.dense_to_csr(c, cap, triu=triu)),
                 **roofline(read * c.element_size() + csr_bytes(m, cap, c.element_size())))
 
 
@@ -540,6 +577,18 @@ def split3_passes(ap, bp, a, n) -> torch.Tensor:
     return c
 
 
+def k6_gemm_alone(ap, bp, a, b, bounds, tables, mask, c, work):
+    """K6's GEMM launched on its own (no run check, no host synchronisation),
+    into ``c``, on run bounds already checked: what the wrapper launches
+    last.  ``work``: its block counter, two zero int32 words (each launch
+    leaves them zero).  For timing only; it counts no launch."""
+    code = _build.load().smm_bsr_bsr_matmul_dense_bf16(
+        bounds.data_ptr(), tables[0].data_ptr(), tables[1].data_ptr(), mask.data_ptr(),
+        ap.data_ptr(), bp.data_ptr(), c.data_ptr(), work.data_ptr(), a.nbr, b.nbc,
+        a.block_capacity, b.block_capacity, c.shape[0], c.shape[1], _build.stream_ptr(c.device))
+    _build.check(code, "bsr_bsr_matmul_dense")
+
+
 def bsr_kernels(a_sp, b_sp, bu_sp) -> dict:
     """K6 (A x B over the pair plan) and K5 (A x densified B_u) against their
     plain versions, at the BSR path's shapes."""
@@ -563,17 +612,58 @@ def bsr_kernels(a_sp, b_sp, bu_sp) -> dict:
     require(bool((err <= bound).all()), "K6 outside 1e-5 of |A||B| against plain")
     visited = mask.repeat_interleave(bsz, 0).repeat_interleave(bsz, 1)[: a.shape[0], : b.shape[1]]
     require(bool((got[~visited] == 0).all()), "K6 wrote a block no pair visits")
+    del plain, visited
+    # K6's run check bit for bit against its plain version; its GEMM alone on
+    # the pieces gives K6's bits, within K5_PIECES_TOL of (|A| |B|) of the six
+    # passes of those pieces.
+    runs = kb.bsr_pair_runs(a, b, *tables[:4])
+    runs_plain = kb.bsr_pair_runs_plain(a, b, *tables[:4])
+    require(all(torch.equal(g, w) for g, w in zip(runs, runs_plain)) and int(runs[1]) == 0,
+            "K6's run bounds differ from plain")
+    ap, bp = kb.bsr_bsr_split(a, b)
+    require(torch.equal(kb.bsr_bsr_matmul_dense_pieces(ap, bp, a, b, *tables, mask), got),
+            "K6's GEMM alone differs from K6")
+    abs_ab = bound / RTOL
+    six = kb.bsr_bsr_matmul_dense_pieces_plain(ap, bp, a, b, *tables, mask)
+    k6_pieces_rel = float(((got.double() - six.double()).abs() / abs_ab.clamp(min=1e-30)).max())
+    require(k6_pieces_rel <= K5_PIECES_TOL,
+            f"K6 {k6_pieces_rel:.2e} of |A||B| from the six passes of its pieces")
+    del six, abs_ab
     block_bytes = 4 * bsz * bsz
+    na, nb_b = int(a.nblocks), int(b.nblocks)
+    k6_flops = 6 * 2.0 * n * bsz**3  # six bf16 passes of HIGHEST per pair
+    c_gemm = torch.empty_like(got)
+    work = torch.zeros(2, dtype=torch.int32, device=DEVICE)
+    k6_parts = dict(
+        split_a_ms=event_ms(lambda: tm.split_bf16(a.blocks.reshape(-1, bsz), 3)),
+        split_b_ms=event_ms(lambda: tm.split_bf16(b.blocks.reshape(-1, bsz), 3, transpose=True)),
+        runs_ms=event_ms(lambda: kb.bsr_pair_runs(a, b, *tables[:4])),
+        gemm_ms=event_ms(lambda: k6_gemm_alone(ap, bp, a, b, runs[0], tables, mask, c_gemm,
+                                                  work)),
+        pieces_ms=event_ms(lambda: kb.bsr_bsr_matmul_dense_pieces(ap, bp, a, b, *tables, mask)),
+        whole_ms=event_ms(lambda: kb.bsr_bsr_matmul_dense(a, b, *tables, mask)),
+        gemm_bound_ms=roofline(2 * 3 * bsz * bsz * (na + nb_b) + 4 * a.shape[0] * b.shape[1],
+                               k6_flops, "bf16")["bound_ms"])
+    require(torch.equal(c_gemm, got), "K6's GEMM launched alone differs from K6")
+    del ap, bp, c_gemm
     out["bsr_bsr_matmul_dense"] = dict(
         max_abs_err=float(err.max()),
         ms=event_ms(lambda: kb.bsr_bsr_matmul_dense(a, b, *tables, mask)),
+        device_ms=event_ms(lambda: kb.bsr_bsr_matmul_dense(a, b, *tables, mask), queued=True),
+        kernels_us=kernel_device_us(lambda: kb.bsr_bsr_matmul_dense(a, b, *tables, mask)),
         plain_ms=event_ms(lambda: kb.bsr_bsr_matmul_dense_plain(a, b, *tables, mask)),
         library_ms=None,  # PyTorch multiplies no two BSR matrices in one call
-        **roofline(block_bytes * (int(a.nblocks) + int(b.nblocks)) + 4 * a.shape[0] * b.shape[1],
-                   6 * 2.0 * n * bsz**3, "bf16"),
+        **roofline(block_bytes * (na + nb_b) + 4 * a.shape[0] * b.shape[1], k6_flops, "bf16"),
+        parts=k6_parts, pieces_rel_err=k6_pieces_rel,
         n_pairs=n, n_a_blocks=plan["n_a_blocks"], visited_blocks=int(plan["mask"].sum()),
         unvisited_zero=True)
-    del got, plain, bound, err, visited
+    # The run check reads the four tables once and writes the bounds and flag.
+    out["bsr_pair_runs"] = dict(
+        max_abs_err=0.0, ms=k6_parts["runs_ms"],
+        plain_ms=event_ms(lambda: kb.bsr_pair_runs_plain(a, b, *tables[:4])),
+        library_ms=None,  # no one PyTorch call both checks the tables and finds the runs
+        **roofline(16 * n + 4 * (a.nbr * b.nbc + 2)))
+    del got, bound, err, runs, runs_plain
 
     bu = smt.from_scipy(bu_sp, dtype=torch.float32, device=DEVICE)
     bud = ck.csr_to_dense(bu.indptr, bu.indices, bu.values, bu.shape)
@@ -623,6 +713,37 @@ def bsr_kernels(a_sp, b_sp, bu_sp) -> dict:
         parts=parts, pieces_rel_err=pieces_rel, split3_rel_err=split3_rel, n_a_blocks=nb,
         empty_block_rows=int(empty.sum()) // bsz)
     return out
+
+
+def bsr_crossover(b_sp) -> list:
+    """Request 1's form, A x B with B the 10% one, at each of CROSSOVER_OCCS
+    for A (block_sparse's generator, seed BSR_SEEDS[0]): end to end on the
+    BSR route (force_bsr) and on the dense route (use_bsr=False), min of
+    PATH_RUNS each; the BSR route's product kernel, and the same nnz on both."""
+    rows = []
+    bsz = smt.get_config().block_size
+    for occ in CROSSOVER_OCCS:
+        a_sp = block_sparse(BSR_SEEDS[0], occ)
+        plan = kb.bsr_pair_plan(a_sp, b_sp, bsz)
+        row = dict(occupancy=api.block_occupancy(a_sp, bsz),
+                   pairs=0 if plan is None else plan["n_pairs"])
+        nnz = {}
+        for route, cfg in (("bsr", dict(force_bsr=True)), ("dense", dict(use_bsr=False))):
+            saved = smt.get_config()
+            smt.set_config(**cfg)
+            try:
+                before = dict(LAUNCHES)
+                row[route] = wall_s(lambda: smt.sparse_matrix_multiply(a_sp, b_sp))
+                require(smt.get_last_route() == route, f"crossover at {occ}: not route {route!r}")
+                nnz[route] = smt.sparse_matrix_multiply(a_sp, b_sp).nnz
+                if route == "bsr":
+                    row["kernel"] = ("K6" if LAUNCHES["bsr_bsr_matmul_dense"]
+                                     > before["bsr_bsr_matmul_dense"] else "K5")
+            finally:
+                smt.set_config(saved)
+        require(nnz["bsr"] == nnz["dense"], f"crossover at {occ}: nnz differs between the routes")
+        rows.append(row)
+    return rows
 
 
 def uniform_bu():
@@ -1050,6 +1171,7 @@ def main() -> int:
     if sass is not None:
         for kernel, instances, ops in (("triu_gemm_kernel", 2, ("HGMMA", "UTMALDG")),
                                        ("bsr_dense_kernel", 1, ("HGMMA", "UTMALDG")),
+                                       ("bsr_bsr_kernel", 1, ("HGMMA", "UTMALDG")),
                                        ("csr_to_dense_kernel", 2, ("UBLKCP",))):
             found = [v for k, v in sass.items() if kernel in k]
             require(len(found) == instances and all(v[op] > 0 for v in found for op in ops),
@@ -1147,7 +1269,8 @@ def main() -> int:
     ext_sib_triu = compare_extract(torch.triu(c_sib), triu=True)
     ext_sib_full = compare_extract(c_sib, triu=False)
     del c_sib, sa, sb
-    timing_keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
+    timing_keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "device_ms",
+                   "kernels_us")
     report["dense_to_csr_triu"] = dict(
         max_abs_err=max(ext_10k_triu["max_abs_err"], ext_sib_triu["max_abs_err"]),
         **{key: ext_10k_triu[key] for key in timing_keys})
@@ -1156,7 +1279,9 @@ def main() -> int:
         **{key: ext_sib_full[key] for key in timing_keys})
 
     def ext(label, r):
-        return f"{label} {timing(r)}, nnz {r['nnz']}"
+        by_kernel = ", ".join(f"{k} {us:.1f}" for k, us in r["kernels_us"].items())
+        return (f"{label} {timing(r)}, nnz {r['nnz']}; device alone (queued) "
+                f"{r['device_ms']:.3f}, by kernel (us): {by_kernel}")
 
     phase("kernels", t0, " | ".join(
         [f"K3 {label} {r['shape'][0]}x{r['shape'][1]} (nnz {r['nnz']}): {timing(r)}; K8 "
@@ -1196,8 +1321,8 @@ def main() -> int:
         require(route == "dense", f"{label}: route {route!r} != 'dense'")
     for key in DENSE_PATH_KERNELS:
         require(launches_main[key] > 0, f"the main path launched no {KERNELS[key][0]}")
-    require(launches_main["bsr_matmul_dense"] == launches_main["bsr_bsr_matmul_dense"] == 0,
-            "the dense main path launched a BSR kernel")
+    require(launches_main["bsr_matmul_dense"] == launches_main["bsr_bsr_matmul_dense"]
+            == launches_main["bsr_pair_runs"] == 0, "the dense main path launched a BSR kernel")
     for key in ("matmul_triu", "split_bf16", "dense_to_csr_triu", "csr_to_dense"):
         require(per_request["headline_symmetric_10k"][key] > 0,
                 f"the headline request launched no {KERNELS[key][0]}")
@@ -1301,7 +1426,16 @@ def main() -> int:
     phase("bsr-kernels", t0, f"{BSR_N}^2, {BSR_BLOCK}^2 blocks: K6 {timing(k6)}; "
           f"{k6['n_pairs']} pairs, {k6['visited_blocks']} of "
           f"{(BSR_N // BSR_BLOCK) ** 2} output blocks visited, the rest exactly 0; max abs err "
-          f"{k6['max_abs_err']:.2e} | K5 {timing(k5)}; "
+          f"{k6['max_abs_err']:.2e}; device alone (queued) {k6['device_ms']:.3f} ms, by kernel "
+          f"(us): {', '.join(f'{k} {us:.1f}' for k, us in k6['kernels_us'].items())}; parts, one "
+          f"window: split A {k6['parts']['split_a_ms']:.3f} + split B^T "
+          f"{k6['parts']['split_b_ms']:.3f} + run check {k6['parts']['runs_ms']:.3f} + GEMM "
+          f"{k6['parts']['gemm_ms']:.3f} ms ({k6['parts']['gemm_bound_ms'] / k6['parts']['gemm_ms']:.1%}"
+          f" of its bound; run check, sync and GEMM {k6['parts']['pieces_ms']:.3f}) against K6 whole "
+          f"{k6['parts']['whole_ms']:.3f} ms, its GEMM alone bit for bit K6's; against the six "
+          f"passes of its pieces {k6['pieces_rel_err']:.2e} of |A||B| (limit {K5_PIECES_TOL:.0e}) "
+          f"| K6's run check {timing(bsr_report['bsr_pair_runs'])}, bit for bit its plain version "
+          f"| K5 {timing(k5)}; "
           f"{k5['n_a_blocks']} A blocks, {k5['empty_block_rows']} empty block-rows; max abs err "
           f"{k5['max_abs_err']:.2e}; parts, one window: split A {k5['parts']['split_a_ms']:.3f} + "
           f"split B^T {k5['parts']['split_b_ms']:.3f} + GEMM {k5['parts']['gemm_ms']:.3f} ms "
@@ -1372,6 +1506,13 @@ def main() -> int:
               for label, t in e2e.items()))
     print(f"[bsr-stages] bsr_x_bsr_8192 sparse_matrix_multiply ({stage_extraction} extraction), "
           f"host clock, min of {PATH_RUNS + 1}: " + json.dumps(bsr_stages), flush=True)
+    t0 = time.perf_counter()
+    crossover = bsr_crossover(b_bsp)
+    phase("bsr-crossover", t0, f"{name} [{smi}]: A x B (B {BSR_OCC} occupied), "
+          f"sparse_matrix_multiply end to end, host clock, min of {PATH_RUNS}: " + " | ".join(
+              f"A occupancy {r['occupancy']:.4f} ({r['pairs']} pairs): BSR route {r['bsr']:.4f} s "
+              f"({r['kernel']}), dense route {r['dense']:.4f} s, BSR/dense {r['bsr'] / r['dense']:.3f}"
+              for r in crossover))
     del a_bsp, b_bsp, bu_sp, bsr_b
 
     # 10. the fused conversions K7/K8 through their own entry points, counted

@@ -44,6 +44,8 @@
 #include <limits.h>
 #include <stdint.h>
 
+#include "smem_limit.cuh"
+
 namespace {
 
 constexpr int kWarp = 32;
@@ -258,8 +260,7 @@ int dense_to_csr_fused(const void* dense, int64_t m, int64_t n, int64_t lane, in
   if (n_tiles + pad > INT_MAX) return (int)cudaErrorInvalidValue;
   const int64_t tile_elems = tile_elems_for<T>(lane);
   const int smem = (int)(tile_elems * (int64_t)sizeof(T));
-  cudaError_t err = cudaFuncSetAttribute(fused_extract_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const cudaError_t err = raise_smem_limit_once(fused_extract_kernel<T>, (int)kMaxTileBytes);
   if (err != cudaSuccess) return (int)err;
   fused_extract_kernel<T><<<(unsigned)(n_tiles + pad), kThreads, smem, (cudaStream_t)stream>>>(
       (const T*)dense, m, n, lane, tile_elems, n_tiles, capacity, (unsigned long long*)status,
@@ -276,8 +277,7 @@ int csr_to_dense_fused(const void* indptr, const void* indices, const void* valu
   if (n_tiles > INT_MAX) return (int)cudaErrorInvalidValue;
   const int64_t tile_elems = tile_elems_for<T>(lane);
   const int smem = (int)(tile_elems * (int64_t)sizeof(T));
-  cudaError_t err = cudaFuncSetAttribute(fused_densify_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const cudaError_t err = raise_smem_limit_once(fused_densify_kernel<T>, (int)kMaxTileBytes);
   if (err != cudaSuccess) return (int)err;
   fused_densify_kernel<T><<<(unsigned)n_tiles, kThreads, smem, (cudaStream_t)stream>>>(
       (const int32_t*)indptr, (const int32_t*)indices, (const T*)values, (T*)dense, m, n, lane,

@@ -1,4 +1,4 @@
-// The split-bf16 tensor-core GEMM core that K1 (triu_matmul.cu) and K5
+// The split-bf16 tensor-core GEMM core that K1 (triu_matmul.cu), K5 and K6
 // (bsr_spgemm.cu) share, for Hopper (sm_90a).
 //
 // A CTA computes one 128x128 fp32 output tile as the sum over P bf16 pieces
@@ -20,11 +20,14 @@
 //     added to an fp32 register accumulator (round to nearest) after each.
 //
 // What differs between the kernels is the schedule, a struct with
-//   int  steps() const           -- the CTA's number of 64-deep K-steps;
+//   int  steps() const           -- the tile's number of 64-deep K-steps;
 //   int2 a_at(int ks, int p)     -- (K column, row) of A's box of piece p at step ks;
 //   int2 b_at(int ks, int p)     -- the same for B.
-// The kernel picks its output tile, builds its schedule, calls gemm_tile
-// and stores the tile with store_tile.
+// A kernel with one tile per CTA picks it, builds its schedule, calls
+// gemm_tile and stores the tile with store_tile.  A persistent kernel sets
+// the ring up once (ring_setup) and runs produce / consume on each of its
+// tiles in turn, counting the ring's steps across tiles, so the producer
+// loads a tile's first K-steps while the consumers store the tile before.
 
 #pragma once
 
@@ -154,62 +157,74 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, ui
 
 // ------------------------------------------------------------------ core ----
 
-// Runs the schedule's K loop for one 128x128 tile.  Returns true in the 256
-// consumer threads, whose acc then holds their part of the tile (see
-// store_tile), and false in the producer warp.  Needs Ring<P>::smem bytes of
-// dynamic shared memory and kGemmThreads threads.
-template <int P, class Schedule>
-__device__ __forceinline__ bool gemm_tile(const CUtensorMap& map_a, const CUtensorMap& map_b,
-                                          const Schedule& sched, float (&acc)[64]) {
+// The ring of stages in dynamic shared memory (1024-aligned) and its full /
+// empty mbarriers, initialised by the whole CTA.
+template <int P>
+struct RingSmem {
+  uint32_t base, full, empty;
+};
+
+template <int P>
+__device__ __forceinline__ RingSmem<P> ring_setup() {
   using R = Ring<P>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
-  const uint32_t base = raw + ((1024 - (raw & 1023)) & 1023);  // 1024-aligned stage ring
-  const uint32_t full = base + R::stages * R::stage_bytes;     // mbarriers, 8 bytes each
-  const uint32_t empty = full + R::stages * 8;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int nk = sched.steps();
-
+  RingSmem<P> r;
+  r.base = raw + ((1024 - (raw & 1023)) & 1023);  // 1024-aligned stage ring
+  r.full = r.base + R::stages * R::stage_bytes;   // mbarriers, 8 bytes each
+  r.empty = r.full + R::stages * 8;
   if (threadIdx.x == 0) {
     for (int s = 0; s < R::stages; ++s) {
-      mbar_init(full + 8 * s, 1);
-      mbar_init(empty + 8 * s, kConsumerWarps);
+      mbar_init(r.full + 8 * s, 1);
+      mbar_init(r.empty + 8 * s, kConsumerWarps);
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
+  return r;
+}
 
-  if (warp == kConsumerWarps) {  // producer
-    if (lane == 0) {
-      asm volatile("prefetch.tensormap [%0];" ::"l"(reinterpret_cast<uint64_t>(&map_a)) : "memory");
-      asm volatile("prefetch.tensormap [%0];" ::"l"(reinterpret_cast<uint64_t>(&map_b)) : "memory");
-      for (int ks = 0; ks < nk; ++ks) {
-        const int s = ks % R::stages;
-        if (ks >= R::stages) mbar_wait(empty + 8 * s, ((ks / R::stages) - 1) & 1);
-        const uint32_t stage = base + s * R::stage_bytes;
-        mbar_expect_tx(full + 8 * s, R::stage_bytes);
+// The producer (one thread): TMA loads of the schedule's K-steps, which are
+// the ring's steps g0, g0 + 1, ... counted over every tile the CTA has run.
+template <int P, class Schedule>
+__device__ __forceinline__ void produce(const RingSmem<P>& r, const CUtensorMap& map_a,
+                                        const CUtensorMap& map_b, const Schedule& sched,
+                                        int g0) {
+  using R = Ring<P>;
+  const int nk = sched.steps();
+  for (int ks = 0; ks < nk; ++ks) {
+    const int g = g0 + ks, s = g % R::stages;
+    if (g >= R::stages) mbar_wait(r.empty + 8 * s, ((g / R::stages) - 1) & 1);
+    const uint32_t stage = r.base + s * R::stage_bytes;
+    mbar_expect_tx(r.full + 8 * s, R::stage_bytes);
 #pragma unroll
-        for (int p = 0; p < P; ++p) {
-          const int2 at = sched.a_at(ks, p), bt = sched.b_at(ks, p);
-          tma_load(stage + p * kTileBytes, &map_a, full + 8 * s, at.x, at.y);
-          tma_load(stage + (P + p) * kTileBytes, &map_b, full + 8 * s, bt.x, bt.y);
-        }
-      }
+    for (int p = 0; p < P; ++p) {
+      const int2 at = sched.a_at(ks, p), bt = sched.b_at(ks, p);
+      tma_load(stage + p * kTileBytes, &map_a, r.full + 8 * s, at.x, at.y);
+      tma_load(stage + (P + p) * kTileBytes, &map_b, r.full + 8 * s, bt.x, bt.y);
     }
-    return false;
   }
+}
 
-  // Consumers: warpgroup wg owns rows 64 wg .. 64 wg + 63 of the tile.
+// The consumers (256 threads): the schedule's K-steps from ring step g0 on,
+// summed into acc (their part of the tile, see store_tile).
+template <int P, class Schedule>
+__device__ __forceinline__ void consume(const RingSmem<P>& r, const Schedule& sched, int g0,
+                                        float (&acc)[64]) {
+  using R = Ring<P>;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int nk = sched.steps();
+  // Warpgroup wg owns rows 64 wg .. 64 wg + 63 of the tile.
   const int wg = warp / 4;
   float part[64];
 #pragma unroll
   for (int i = 0; i < 64; ++i) acc[i] = part[i] = 0.f;
 
   for (int ks = 0; ks < nk; ++ks) {
-    const int s = ks % R::stages;
-    mbar_wait(full + 8 * s, (ks / R::stages) & 1);
-    const uint32_t a_tiles = base + s * R::stage_bytes + wg * (kTile / 2) * kStep * 2;
-    const uint32_t b_tiles = base + s * R::stage_bytes + P * kTileBytes;
+    const int g = g0 + ks, s = g % R::stages;
+    mbar_wait(r.full + 8 * s, (g / R::stages) & 1);
+    const uint32_t a_tiles = r.base + s * R::stage_bytes + wg * (kTile / 2) * kStep * 2;
+    const uint32_t b_tiles = r.base + s * R::stage_bytes + P * kTileBytes;
     fence_regs(part);
     wgmma_fence();
 #pragma unroll
@@ -225,10 +240,33 @@ __device__ __forceinline__ bool gemm_tile(const CUtensorMap& map_a, const CUtens
     wgmma_wait_all();
     fence_regs(part);
     __syncwarp();
-    if (lane == 0) mbar_arrive(empty + 8 * s);
+    if (lane == 0) mbar_arrive(r.empty + 8 * s);
 #pragma unroll
     for (int i = 0; i < 64; ++i) acc[i] += part[i];
   }
+}
+
+__device__ __forceinline__ void prefetch_maps(const CUtensorMap& map_a, const CUtensorMap& map_b) {
+  asm volatile("prefetch.tensormap [%0];" ::"l"(reinterpret_cast<uint64_t>(&map_a)) : "memory");
+  asm volatile("prefetch.tensormap [%0];" ::"l"(reinterpret_cast<uint64_t>(&map_b)) : "memory");
+}
+
+// Runs the schedule's K loop for one 128x128 tile.  Returns true in the 256
+// consumer threads, whose acc then holds their part of the tile (see
+// store_tile), and false in the producer warp.  Needs Ring<P>::smem bytes of
+// dynamic shared memory and kGemmThreads threads.
+template <int P, class Schedule>
+__device__ __forceinline__ bool gemm_tile(const CUtensorMap& map_a, const CUtensorMap& map_b,
+                                          const Schedule& sched, float (&acc)[64]) {
+  const RingSmem<P> r = ring_setup<P>();
+  if (threadIdx.x / 32 == kConsumerWarps) {  // producer
+    if (threadIdx.x % 32 == 0) {
+      prefetch_maps(map_a, map_b);
+      produce(r, map_a, map_b, sched, 0);
+    }
+    return false;
+  }
+  consume(r, sched, 0, acc);
   return true;
 }
 

@@ -39,6 +39,7 @@
 //     32-byte sector per row and instruction.
 
 #include "hopper_gemm.cuh"
+#include "smem_limit.cuh"
 
 namespace {
 
@@ -201,8 +202,7 @@ int gemm(const void* ap, const void* bp, void* c, int64_t m, int64_t n, int64_t 
   if (!tensor_map(&map_a, ap, P * m_pad, k_pad) || !tensor_map(&map_b, bp, P * n_pad, k_pad)) {
     return (int)cudaErrorInvalidValue;
   }
-  cudaError_t err = cudaFuncSetAttribute(
-      triu_gemm_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize, Ring<P>::smem);
+  const cudaError_t err = raise_smem_limit_once(triu_gemm_kernel<P>, Ring<P>::smem);
   if (err != cudaSuccess) return (int)err;
   triu_gemm_kernel<P><<<(unsigned)pairs, kGemmThreads, Ring<P>::smem, stream>>>(
       map_a, map_b, (float*)c, (int)m, (int)n, (int)m_pad, (int)n_pad, (int)(k_pad / kStep),

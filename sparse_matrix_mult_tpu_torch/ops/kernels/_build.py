@@ -38,7 +38,7 @@ NVCC_FLAGS = [
 # Kernel launches per wrapper; each CUDA wrapper adds one where it launches.
 LAUNCHES = {
     "matmul_triu": 0, "split_bf16": 0, "csr_to_dense": 0, "dense_to_csr": 0,
-    "dense_to_csr_triu": 0, "bsr_matmul_dense": 0, "bsr_bsr_matmul_dense": 0,
+    "dense_to_csr_triu": 0, "bsr_matmul_dense": 0, "bsr_pair_runs": 0, "bsr_bsr_matmul_dense": 0,
     "dense_to_csr_fused": 0, "csr_to_dense_fused": 0,
 }
 
@@ -53,12 +53,14 @@ _SIGNATURES = {
     "smm_matmul_triu_bf16": [_P, _P, _P, _I64, _I64, _I64, _I64, _I64, _INT, _P],
     "smm_csr_to_dense_f32": [_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _P],
     "smm_csr_to_dense_f64": [_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _P],
-    "smm_dense_count_f32": [_P, _I64, _I64, _INT, _P, _P],
-    "smm_dense_count_f64": [_P, _I64, _I64, _INT, _P, _P],
-    "smm_dense_fill_f32": [_P, _I64, _I64, _INT, _P, _I64, _P, _P, _P],
-    "smm_dense_fill_f64": [_P, _I64, _I64, _INT, _P, _I64, _P, _P, _P],
+    "smm_dense_count_f32": [_P, _I64, _I64, _INT, _I64, _P, _P],
+    "smm_dense_count_f64": [_P, _I64, _I64, _INT, _I64, _P, _P],
+    "smm_dense_fill_f32": [_P, _I64, _I64, _INT, _I64, _P, _P, _P, _P],
+    "smm_dense_fill_f64": [_P, _I64, _I64, _INT, _I64, _P, _P, _P, _P],
     "smm_bsr_matmul_dense_bf16": [_P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64, _P],
-    "smm_bsr_bsr_matmul_dense_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _P],
+    "smm_bsr_pair_runs": [_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _P, _P, _P],
+    "smm_bsr_bsr_matmul_dense_bf16": [_P] * 8 + [_I64] * 6 + [_P],
+    "smm_bsr_bsr_matmul_dense_f32": [_P] * 8 + [_I64, _P, _P, _P, _P] + [_I64] * 6 + [_P],
     "smm_dense_to_csr_fused_f32": [_P, _I64, _I64, _I64, _I64, _P, _P, _P, _P, _P],
     "smm_dense_to_csr_fused_f64": [_P, _I64, _I64, _I64, _I64, _P, _P, _P, _P, _P],
     "smm_csr_to_dense_fused_f32": [_P, _P, _P, _P, _I64, _I64, _I64, _P],

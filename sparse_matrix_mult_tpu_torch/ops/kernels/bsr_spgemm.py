@@ -9,13 +9,22 @@ host pair planner.
   them (one ``bsr_matmul_dense`` launch).
 * K6 :func:`bsr_bsr_matmul_dense` -- BSR A x BSR B -> dense over the block
   pairs :func:`bsr_pair_plan` lists; replaces ``bsr_spgemm.py::_kernel_bb``.
+  On the card it is the same GEMM core with a pair schedule, at HIGHEST:
+  :func:`bsr_bsr_split` makes the pieces of both operands' stored blocks
+  (two ``split_bf16`` launches), :func:`bsr_pair_runs` checks the tables and
+  finds each output block's run of pairs (one ``bsr_pair_runs`` launch),
+  :func:`bsr_bsr_matmul_dense_pieces` multiplies (one ``bsr_bsr_matmul_dense``
+  launch), then reads the check's flag (the call's one host synchronisation).
+  A whole call makes those launches from one host call.
 
-Zero blocks are skipped: no load, no multiply.  Both CUDA kernels take
+Zero blocks are skipped: no load, no multiply.  The CUDA kernels take
 float32 and 128x128 blocks only; the plain versions take any block size and
 float dtype, and run their f32 products in full FP32 (never TF32).
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -24,7 +33,7 @@ from ...types import bucket_capacity
 from ...types_bsr import BSRMatrix, _tobsr_padded, bsr_to_dense
 from ..matmul import full_fp32
 from . import _build
-from .triu_matmul import split_bf16
+from .triu_matmul import KSTEP, TILE, split_bf16
 
 __all__ = [
     "bsr_pair_plan",
@@ -33,8 +42,13 @@ __all__ = [
     "bsr_matmul_dense_plain",
     "bsr_matmul_dense_pieces",
     "bsr_matmul_dense_pieces_plain",
+    "bsr_bsr_split",
+    "bsr_pair_runs",
+    "bsr_pair_runs_plain",
     "bsr_bsr_matmul_dense",
     "bsr_bsr_matmul_dense_plain",
+    "bsr_bsr_matmul_dense_pieces",
+    "bsr_bsr_matmul_dense_pieces_plain",
 ]
 
 KERNEL_BLOCK = 128  # the only block edge the CUDA kernels take
@@ -228,6 +242,155 @@ def bsr_bsr_matmul_dense_plain(a: BSRMatrix, b: BSRMatrix, pa, pb, ci, cj, first
     return out.transpose(1, 2).reshape(nbr * bsz, nbc * bsz)[: a.shape[0], : b.shape[1]]
 
 
+def bsr_bsr_split(a: BSRMatrix, b: BSRMatrix):
+    """The bf16 pieces K6's GEMM multiplies (:func:`split_bf16`, three each):
+    A's block slots in rows form, ``(3, cap_a * bs, bs)``, and B's block
+    slots transposed as one ``(cap_b * bs, bs)`` matrix, ``(3, bs, cap_b *
+    bs)`` (rows and K padded as :func:`split_bf16` pads them): its columns
+    ``[s * bs, (s + 1) * bs)`` are block s transposed, K-major."""
+    bsz = a.block_size
+    ap = split_bf16(a.blocks.reshape(a.block_capacity * bsz, bsz), 3)
+    bp = split_bf16(b.blocks.reshape(b.block_capacity * bsz, bsz), 3, transpose=True)
+    return ap, bp
+
+
+def _pad(x: int, to: int) -> int:
+    return -(-x // to) * to
+
+
+def _check_pair_pieces(ap: torch.Tensor, bp: torch.Tensor, a: BSRMatrix, b: BSRMatrix) -> None:
+    bsz = a.block_size
+    want_a = (3, _pad(a.block_capacity * bsz, TILE), _pad(max(bsz, 1), KSTEP))
+    want_b = (3, _pad(bsz, TILE), _pad(max(b.block_capacity * bsz, 1), KSTEP))
+    if tuple(ap.shape) != want_a or tuple(bp.shape) != want_b:
+        raise ValueError(f"K6's pieces must be {want_a} and {want_b} (bsr_bsr_split), got "
+                         f"{tuple(ap.shape)} and {tuple(bp.shape)}")
+
+
+def bsr_pair_runs_plain(a: BSRMatrix, b: BSRMatrix, pa, pb, ci, cj):
+    """:func:`bsr_pair_runs`'s plain version: ``searchsorted`` of every
+    output block in the keys ``ci * nbc + cj``, and the flag of the range
+    and order checks."""
+    nbr, nbc = a.nbr, b.nbc
+    keys = ci.long() * nbc + cj.long()
+    blocks = torch.arange(nbr * nbc + 1, dtype=torch.int64, device=keys.device)
+    bounds = torch.searchsorted(keys, blocks, out_int32=True)
+    off = ((pa < 0) | (pa >= a.block_capacity) | (pb < 0) | (pb >= b.block_capacity)
+           | (ci < 0) | (ci > nbr) | (cj < 0) | (cj >= nbc)).any()
+    unsorted = (keys[1:] < keys[:-1]).any()
+    return bounds, (off.to(torch.int32) | (unsorted.to(torch.int32) << 1)).reshape(1)
+
+
+def _check_kernel_tables(tables, mask) -> None:
+    if mask.dtype != torch.bool:
+        raise TypeError("mask must be a bool tensor")
+    if not (mask.is_contiguous() and all(t.is_contiguous() for t in tables)):
+        raise ValueError("bsr_bsr_matmul_dense takes contiguous pair tables and mask")
+
+
+def _run_state(a: BSRMatrix, b: BSRMatrix, device):
+    """``bounds`` and ``state`` for the run check: ``state`` is three int32
+    words the launch zeroes, the flag, then the block counter that K6's GEMM
+    claims its output blocks from."""
+    return (torch.empty(a.nbr * b.nbc + 1, dtype=torch.int32, device=device),
+            torch.empty(3, dtype=torch.int32, device=device))
+
+
+def _pair_runs(a: BSRMatrix, b: BSRMatrix, pa, pb, ci, cj):
+    """:func:`bsr_pair_runs` on the card: ``(bounds, state)``."""
+    if any(t.dtype != torch.int32 or t.shape != pa.shape or t.ndim != 1 or not t.is_contiguous()
+           for t in (pa, pb, ci, cj)):
+        raise ValueError("bsr_pair_runs takes contiguous int32 vectors of one length")
+    bounds, state = _run_state(a, b, pa.device)
+    code = _build.load().smm_bsr_pair_runs(
+        pa.data_ptr(), pb.data_ptr(), ci.data_ptr(), cj.data_ptr(), pa.shape[0], a.block_capacity,
+        b.block_capacity, a.nbr, b.nbc, bounds.data_ptr(), state.data_ptr(),
+        _build.stream_ptr(pa.device),
+    )
+    _build.LAUNCHES["bsr_pair_runs"] += 1
+    _build.check(code, "bsr_pair_runs")
+    return bounds, state
+
+
+def bsr_pair_runs(a: BSRMatrix, b: BSRMatrix, pa, pb, ci, cj):
+    """Each output block's run of pairs, and a check of the tables, in one
+    pass: ``(bounds, flag)``.  Block ``i * nbc + j`` owns pairs ``[bounds[i
+    * nbc + j], bounds[i * nbc + j + 1])`` (``bounds`` int32, ``nbr * nbc +
+    1`` long): the pairs whose key ``ci * nbc + cj`` is its own, in tables
+    sorted by key; the planner's padding pairs (block-row ``nbr``) lie past
+    ``bounds[-1]``.  ``flag`` (int32, one element) has bit 1 set when a slot
+    lies past either capacity or a block off the output (the dummy block-row
+    ``nbr`` is allowed), bit 2 when the keys are out of order."""
+    if not _build.is_cuda(pa, pb, ci, cj):
+        return bsr_pair_runs_plain(a, b, pa, pb, ci, cj)
+    bounds, state = _pair_runs(a, b, pa, pb, ci, cj)
+    return bounds, state[:1]
+
+
+def _raise_on(flag: torch.Tensor) -> None:
+    """Read :func:`bsr_pair_runs`'s flag: the one host synchronisation of a
+    K6 call.  A slot past either capacity or a block off the output raises
+    ``IndexError``, tables out of order ``ValueError``."""
+    bad = int(flag)
+    if bad & 1:
+        raise IndexError("bsr_bsr_matmul_dense: a pair table entry is out of range")
+    if bad & 2:
+        raise ValueError("bsr_bsr_matmul_dense: the pair tables are not sorted by output block")
+
+
+def bsr_bsr_matmul_dense_pieces_plain(ap: torch.Tensor, bp: torch.Tensor, a: BSRMatrix,
+                                      b: BSRMatrix, pa, pb, ci, cj, first, mask):
+    """The six passes of the pieces: K6's plain version on the f32 blocks of
+    piece i of A and piece j of B, summed over i + j < 3."""
+    bsz, cap_a, cap_b = a.block_size, a.block_capacity, b.block_capacity
+    blocks_a = ap[:, : cap_a * bsz, :bsz].to(torch.float32).reshape(3, cap_a, bsz, bsz)
+    blocks_b = (bp[:, :bsz, : cap_b * bsz].to(torch.float32).reshape(3, bsz, cap_b, bsz)
+                .permute(0, 2, 3, 1).contiguous())  # [piece][slot][k][col]
+    c = None
+    for i in range(3):
+        for j in range(3 - i):  # the passes whose pieces' orders sum below 3
+            part = bsr_bsr_matmul_dense_plain(dataclasses.replace(a, blocks=blocks_a[i]),
+                                              dataclasses.replace(b, blocks=blocks_b[j]),
+                                              pa, pb, ci, cj, first, mask)
+            c = part if c is None else c + part
+    return c
+
+
+def bsr_bsr_matmul_dense_pieces(ap: torch.Tensor, bp: torch.Tensor, a: BSRMatrix, b: BSRMatrix,
+                                pa, pb, ci, cj, first, mask):
+    """K6's run check and GEMM alone, on the pieces :func:`bsr_bsr_split`
+    made of ``a`` and ``b``: the (a.shape[0], b.shape[1]) product, every
+    entry written."""
+    tables = (pa, pb, ci, cj, first)
+    _check_plan(a, b, tables, mask)
+    _check_pair_pieces(ap, bp, a, b)
+    if not _build.is_cuda(ap, bp, *tables, mask):
+        return bsr_bsr_matmul_dense_pieces_plain(ap, bp, a, b, *tables, mask)
+    if ap.dtype != torch.bfloat16 or bp.dtype != torch.bfloat16:
+        raise TypeError("bsr_bsr_matmul_dense_pieces takes bfloat16 pieces")
+    if a.block_size != KERNEL_BLOCK:
+        raise ValueError(f"the CUDA bsr_bsr_matmul_dense kernel takes {KERNEL_BLOCK}x"
+                         f"{KERNEL_BLOCK} blocks, got {a.block_size}")
+    _check_kernel_tables(tables, mask)
+    if not (ap.is_contiguous() and bp.is_contiguous()):
+        raise ValueError("bsr_bsr_matmul_dense_pieces takes contiguous pieces")
+    bounds, state = _pair_runs(a, b, pa, pb, ci, cj)
+    m, n = a.shape[0], b.shape[1]
+    c = torch.empty((m, n), dtype=torch.float32, device=ap.device)
+    if m and n:
+        # Safe on tables the flag refuses (csrc/bsr_spgemm.cu): launched before
+        # the flag is read, so the device runs the call's kernels back to back.
+        code = _build.load().smm_bsr_bsr_matmul_dense_bf16(
+            bounds.data_ptr(), pa.data_ptr(), pb.data_ptr(), mask.data_ptr(), ap.data_ptr(),
+            bp.data_ptr(), c.data_ptr(), state[1:].data_ptr(), a.nbr, b.nbc, a.block_capacity,
+            b.block_capacity, m, n, _build.stream_ptr(c.device),
+        )
+        _build.LAUNCHES["bsr_bsr_matmul_dense"] += 1
+        _build.check(code, "bsr_bsr_matmul_dense")
+    _raise_on(state[:1])
+    return c
+
+
 def bsr_bsr_matmul_dense(a: BSRMatrix, b: BSRMatrix, pa, pb, ci, cj, first, mask):
     """``A_bsr @ B_bsr -> dense`` over the block pairs of
     :func:`bsr_pair_plan` (K6).
@@ -235,36 +398,38 @@ def bsr_bsr_matmul_dense(a: BSRMatrix, b: BSRMatrix, pa, pb, ci, cj, first, mask
     ``pa/pb/ci/cj/first`` are the plan's int32 tables, sorted by output block;
     they may be the ``n_pairs`` real pairs or the JAX planner's padded
     tables (padding pairs, in block-row ``nbr``, are skipped).  ``mask`` is
-    the (nbr, nbc) visited-block mask; blocks no pair visits are zero.
+    the (nbr, nbc) visited-block mask; blocks no pair visits are zero.  On
+    the card: the launches of :func:`bsr_bsr_split` and
+    :func:`bsr_bsr_matmul_dense_pieces`, made from one host call; a slot past
+    either capacity or a block off the output raises ``IndexError``, tables
+    out of order ``ValueError``.
     """
     tables = (pa, pb, ci, cj, first)
     _check_plan(a, b, tables, mask)
     if not _build.is_cuda(a.blocks, b.blocks, *tables, mask):
         return bsr_bsr_matmul_dense_plain(a, b, pa, pb, ci, cj, first, mask)
     _check_kernel_operands("bsr_bsr_matmul_dense", a.block_size, a.blocks, b.blocks)
-    if not all(t.is_contiguous() for t in tables):
-        raise ValueError("bsr_bsr_matmul_dense takes contiguous pair tables")
     m, n = a.shape[0], b.shape[1]
-    c = torch.zeros((m, n), dtype=torch.float32, device=a.blocks.device)
-    # The kernel indexes blocks and output tiles by the tables unchecked:
-    # refuse slots past either capacity and blocks off the output (the
-    # padding pairs' dummy block-row nbr is allowed).
-    off = ((pa < 0) | (pa >= a.block_capacity) | (pb < 0) | (pb >= b.block_capacity)
-           | (ci < 0) | (ci > a.nbr) | (cj < 0) | (cj >= b.nbc)).any()
-    # One thread block per run of pairs that share an output block: the run
-    # heads are the pairs flagged in ``first`` (one scalar sync for the count).
-    heads = torch.nonzero(first).flatten().to(torch.int32)
-    if bool(off):
-        raise IndexError("bsr_bsr_matmul_dense: a pair table entry is out of range")
-    n_runs = int(heads.shape[0])
-    if n_runs == 0 or m == 0 or n == 0:
-        return c
-    bounds = torch.cat([heads, heads.new_full((1,), pa.shape[0])])
+    if min(a.block_capacity, b.block_capacity, m, n) == 0:  # no block to multiply
+        _raise_on(bsr_pair_runs(a, b, pa, pb, ci, cj)[1])
+        return torch.zeros((m, n), dtype=torch.float32, device=a.blocks.device)
+    _check_kernel_tables(tables, mask)
+    # bsr_bsr_split, the run check and the GEMM in one host call: the same
+    # launches as bsr_bsr_matmul_dense_pieces(*bsr_bsr_split(a, b), ...).
+    dev, bsz, cap_a, cap_b = a.blocks.device, a.block_size, a.block_capacity, b.block_capacity
+    ap = torch.empty((3, cap_a * bsz, bsz), dtype=torch.bfloat16, device=dev)
+    bp = torch.empty((3, bsz, cap_b * bsz), dtype=torch.bfloat16, device=dev)
+    bounds, state = _run_state(a, b, dev)
+    c = torch.empty((m, n), dtype=torch.float32, device=dev)
     code = _build.load().smm_bsr_bsr_matmul_dense_f32(
-        bounds.data_ptr(), pa.data_ptr(), pb.data_ptr(), ci.data_ptr(), cj.data_ptr(),
-        a.blocks.data_ptr(), b.blocks.data_ptr(), c.data_ptr(), n_runs, a.nbr, m, n,
-        _build.stream_ptr(c.device),
+        a.blocks.data_ptr(), b.blocks.data_ptr(), ap.data_ptr(), bp.data_ptr(), pa.data_ptr(),
+        pb.data_ptr(), ci.data_ptr(), cj.data_ptr(), pa.shape[0], mask.data_ptr(),
+        bounds.data_ptr(), state.data_ptr(), c.data_ptr(), a.nbr, b.nbc, cap_a, cap_b, m, n,
+        _build.stream_ptr(dev),
     )
+    _build.LAUNCHES["split_bf16"] += 2
+    _build.LAUNCHES["bsr_pair_runs"] += 1
     _build.LAUNCHES["bsr_bsr_matmul_dense"] += 1
     _build.check(code, "bsr_bsr_matmul_dense")
+    _raise_on(state[:1])
     return c

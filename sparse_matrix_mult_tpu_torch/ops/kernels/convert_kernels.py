@@ -7,8 +7,9 @@
   write each tile once, from a zeroed shared buffer, with asynchronous bulk
   copies (:func:`_densify_tiling`).
 * K4 :func:`dense_to_csr` and K2 :func:`dense_to_csr` with ``triu=True`` --
-  one templated kernel pair replacing ``_concentrate_kernel`` and
-  ``_concentrate_payload_kernel`` (the staircase extraction).
+  one templated count / scan / fill triple (three launches, 16-byte loads)
+  replacing ``_concentrate_kernel`` and ``_concentrate_payload_kernel`` (the
+  staircase extraction).
 * K7 :func:`dense_to_csr_fused` -- replaces ``_fused_extract_kernel``: K4's
   output in one launch (count, decoupled look-back scan and fill) over
   flat-rows of ``lane`` elements.
@@ -166,25 +167,21 @@ def dense_to_csr(c: torch.Tensor, capacity: int, triu: bool = False):
     capacity = int(capacity)
     if not _build.is_cuda(c):
         return dense_to_csr_plain(c, capacity, triu)
-    m, n = c.shape
-    lib = _build.load()
-    suffix = _FLOATS[c.dtype]
-    stream = _build.stream_ptr(c.device)
-    counts = torch.empty(m, dtype=torch.int32, device=c.device)
+    if not 0 <= capacity < 2**31:
+        raise ValueError(f"capacity must lie in [0, 2^31), got {capacity}")
+    (m, n), dev, kind = c.shape, c.device, _FLOATS[c.dtype]
     name = "dense_to_csr_triu" if triu else "dense_to_csr"
-    code = getattr(lib, f"smm_dense_count_{suffix}")(
-        c.data_ptr(), m, n, int(triu), counts.data_ptr(), stream
-    )
+    lib, stream = _build.load(), _build.stream_ptr(dev)
+    # Count and scan first; the entries are allocated while they run.
+    indptr = torch.empty(m + 1, dtype=torch.int32, device=dev)
+    code = getattr(lib, f"smm_dense_count_{kind}")(c.data_ptr(), m, n, int(triu), capacity,
+                                                   indptr.data_ptr(), stream)
     _build.check(code, name)
-    indptr64 = torch.zeros(m + 1, dtype=torch.int64, device=c.device)
-    torch.cumsum(counts, dim=0, dtype=torch.int64, out=indptr64[1:])
-    indptr = indptr64.clamp_(max=capacity).to(torch.int32)
-    indices = torch.empty(capacity, dtype=torch.int32, device=c.device)
-    values = torch.empty(capacity, dtype=c.dtype, device=c.device)
-    code = getattr(lib, f"smm_dense_fill_{suffix}")(
-        c.data_ptr(), m, n, int(triu), indptr.data_ptr(), capacity,
-        indices.data_ptr(), values.data_ptr(), stream,
-    )
+    indices = torch.empty(capacity, dtype=torch.int32, device=dev)
+    values = torch.empty(capacity, dtype=c.dtype, device=dev)
+    code = getattr(lib, f"smm_dense_fill_{kind}")(c.data_ptr(), m, n, int(triu), capacity,
+                                                  indptr.data_ptr(), indices.data_ptr(),
+                                                  values.data_ptr(), stream)
     _build.LAUNCHES[name] += 1
     _build.check(code, name)
     return indptr, indices, values

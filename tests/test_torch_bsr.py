@@ -165,6 +165,20 @@ PAIR_CASES = [
 def _pair_operands(case):
     if case == "ragged":
         return _ragged_pair()
+    if case == "empty_block_rows":  # A's block-rows 0 and 3 empty
+        ad = block_sparse(4, 3, 0.5, seed=4)
+        ad[:128] = 0
+        ad[3 * 128:] = 0
+        ad[128:256, :128] = 1.0
+        return ad, block_sparse(3, 4, 0.5, seed=5)
+    if case == "single_pair":  # A block (0, 1) meets B block (1, 2) only
+        ad = np.zeros((3 * 128, 3 * 128), np.float32)
+        bd = np.zeros((3 * 128, 3 * 128), np.float32)
+        ad[:128, 128:256] = 1.0
+        bd[128:256, 256:] = 2.0
+        return ad, bd
+    if case == "long_run":  # every output block a run of 5 pairs
+        return block_sparse(2, 5, 1.0, seed=8), block_sparse(5, 2, 1.0, seed=9)
     nbr, nbk, nbc, occ_a, occ_b = case
     return (block_sparse(nbr, nbk, occ_a, seed=7 * nbr + nbk),
             block_sparse(nbk, nbc, occ_b, seed=11 * nbk + nbc))
@@ -351,6 +365,118 @@ def test_bsr_bsr_matmul_dense_plain_matches_pallas(case):
     # The JAX planner's padded tables (padding pairs in the dummy block-row)
     # give the same result as the real pairs alone.
     assert torch.equal(kb.bsr_bsr_matmul_dense(_port(jca), _port(jcb), *_port_tables(plan)), got)
+
+
+# K6's cases: real or padded tables, ragged shapes, empty block-rows, a single
+# pair, runs of 5 pairs.
+K6_CASES = PAIR_CASES[:3] + ["ragged", "empty_block_rows", "single_pair", "long_run"]
+
+
+def _k6_setup(case, padded):
+    """(A, B, the port's containers of both, the plan, its tables)."""
+    ad, bd = _pair_operands(case)
+    a, b = sp.csr_matrix(ad), sp.csr_matrix(bd)
+    plan = kb.bsr_pair_plan(a, b, 128)
+    jca = jsmm.bsr_from_scipy(a, 128, dtype=jnp.float32)
+    jcb = jsmm.bsr_from_scipy(b, 128, dtype=jnp.float32)
+    tables = _port_tables(plan, None if padded else plan["n_pairs"])
+    return ad, bd, jca, jcb, plan, tables
+
+
+@pytest.mark.parametrize("padded", [False, True])
+@pytest.mark.parametrize("case", K6_CASES)
+def test_bsr_bsr_matmul_dense_pieces_plain_matches_pallas(case, padded):
+    """K6's GEMM alone (its plain version: the six passes of the bf16 pieces
+    of both operands' stored blocks) on bsr_bsr_split's pieces, against the
+    Pallas K6 (HIGHEST, interpret mode) and the f64 product, within 1e-5 of
+    (|A| |B|); unvisited blocks exactly zero."""
+    ad, bd, jca, jcb, plan, tables = _k6_setup(case, padded)
+    if case == "long_run":
+        assert np.diff(np.flatnonzero(np.r_[plan["first"][: plan["n_pairs"]], 1])).min() >= 4
+    want = _jax_k6(jca, jcb, plan)
+    pa, pb = _port(jca), _port(jcb)
+    ap, bp = kb.bsr_bsr_split(pa, pb)
+    got = kb.bsr_bsr_matmul_dense_pieces(ap, bp, pa, pb, *tables)
+    assert got.dtype == torch.float32 and tuple(got.shape) == want.shape == (ad.shape[0],
+                                                                               bd.shape[1])
+    bound = _bound(ad, bd)
+    _within(got.numpy(), want, bound, "K6 pieces vs Pallas")
+    _within(got.numpy(), ad.astype(np.float64) @ bd.astype(np.float64), bound, "K6 pieces vs f64")
+    _within(got.numpy(), kb.bsr_bsr_matmul_dense(pa, pb, *tables).numpy(), bound,
+            "K6 pieces vs K6 plain")
+    visited = np.repeat(np.repeat(plan["mask"], 128, axis=0), 128, axis=1)
+    assert np.all(got.numpy()[~visited[: ad.shape[0], : bd.shape[1]]] == 0)
+
+
+@pytest.mark.parametrize("case", ["ragged", (3, 4, 3, 0.5, 0.4), "long_run"])
+def test_bsr_bsr_split_matches_split_bf16_plain(case):
+    """A's pieces are split_bf16_plain of its stored blocks in rows form; B's
+    of its stored blocks transposed as one matrix, whose columns [128 s, 128 s
+    + 128) hold block s transposed (three pieces hold an f32 exactly)."""
+    ad, bd = _pair_operands(case)
+    pa = tsmm.bsr_from_scipy(sp.csr_matrix(ad), 128, dtype=torch.float32, device="cpu")
+    pb = tsmm.bsr_from_scipy(sp.csr_matrix(bd), 128, dtype=torch.float32, device="cpu")
+    ap, bp = kb.bsr_bsr_split(pa, pb)
+    assert torch.equal(ap, tm.split_bf16_plain(pa.blocks.reshape(-1, 128), 3))
+    assert torch.equal(bp, tm.split_bf16_plain(pb.blocks.reshape(-1, 128), 3, transpose=True))
+    assert tuple(ap.shape) == (3, pa.block_capacity * 128, 128)
+    assert tuple(bp.shape) == (3, 128, pb.block_capacity * 128)
+    assert torch.equal(ap.float().sum(dim=0).reshape(pa.blocks.shape), pa.blocks)
+    whole = bp.float().sum(dim=0)
+    for slot in range(pb.block_capacity):
+        assert torch.equal(whole[:, slot * 128:(slot + 1) * 128].T, pb.blocks[slot])
+
+
+def _runs_by_walking_first(plan):
+    """Each output block's [start, end) in the real pairs, from a walk of the
+    run-start flags: a block with no run starts where the next run does."""
+    n = plan["n_pairs"]
+    nbr, nbc = plan["mask"].shape
+    heads = np.flatnonzero(plan["first"][:n])
+    ends = np.r_[heads[1:], n]
+    runs = {int(plan["ci"][h]) * nbc + int(plan["cj"][h]): (int(h), int(e))
+            for h, e in zip(heads, ends)}
+    bounds = np.zeros(nbr * nbc + 1, np.int32)
+    nxt = n
+    for block in range(nbr * nbc, -1, -1):
+        if block in runs:
+            nxt = runs[block][0]
+            assert runs[block][1] == bounds[block + 1]  # the run ends where the next block starts
+        bounds[block] = nxt
+    return bounds
+
+
+@pytest.mark.parametrize("padded", [False, True])
+@pytest.mark.parametrize("case", K6_CASES)
+def test_bsr_pair_runs_plain_matches_a_walk_of_first(case, padded):
+    """K6's run bounds (plain version) against a numpy walk of ``first``, on
+    the real pairs and on the planner's padded tables (whose padding lies
+    past the last block's run); good tables raise no flag."""
+    _, _, jca, jcb, plan, tables = _k6_setup(case, padded)
+    bounds, flag = kb.bsr_pair_runs(_port(jca), _port(jcb), *tables[:4])
+    assert bounds.dtype == torch.int32 and flag.dtype == torch.int32
+    np.testing.assert_array_equal(bounds.numpy(), _runs_by_walking_first(plan))
+    assert int(flag) == 0
+
+
+def test_bsr_pair_runs_flags_bad_tables():
+    """Bit 1: a slot past either capacity or a block off the output (the
+    padding's block-row nbr is allowed); bit 2: keys out of order."""
+    _, _, jca, jcb, plan, tables = _k6_setup((3, 4, 3, 0.5, 0.4), False)
+    a, b = _port(jca), _port(jcb)
+    for i, bad in ((0, a.block_capacity), (0, -1), (1, b.block_capacity), (1, -1),
+                   (2, a.nbr + 1), (2, -1), (3, b.nbc), (3, -1)):
+        wrong = [t.clone() for t in tables[:4]]
+        wrong[i][0] = bad
+        assert int(kb.bsr_pair_runs(a, b, *wrong)[1]) & 1, (i, bad)
+    last = [t.clone() for t in tables[:4]]
+    last[2][-1] = a.nbr  # the dummy block-row, as padding
+    last[3][-1] = 0
+    assert int(kb.bsr_pair_runs(a, b, *last)[1]) == 0
+    swapped = [t.clone() for t in tables[:4]]
+    for t in swapped:
+        t[0], t[-1] = int(t[-1]), int(t[0])
+    assert int(kb.bsr_pair_runs(a, b, *swapped)[1]) == 2
 
 
 def _with_nan_padding(m):

@@ -8,6 +8,8 @@ from the repository root (this file imports no JAX):
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 """
 
+import warnings
+
 import numpy as np
 import pytest
 import scipy.sparse as sp
@@ -117,6 +119,51 @@ def test_dense_to_csr_kernel_pads_a_large_capacity(cuda):
     want = ck.dense_to_csr_plain(dense, 1 << 20)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+# K2/K4's edges: widths whose rows are not 16-byte aligned (a scalar head and
+# tail around the 16-byte vectors), rows longer than one 2 KB segment (and
+# triangles whose rows start in a later segment column), many short rows,
+# and a matrix that starts 4 bytes off a 16-byte boundary.
+EXTRACT_EDGE_SHAPES = [(7, 1), (3, 3), (5, 5), (33, 33), (130, 130), (9, 1030), (600, 600),
+                       (4, 5000), (1100, 1100), (1030, 9)]
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("truncate", [False, True])
+@pytest.mark.parametrize("triu", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("m,n", EXTRACT_EDGE_SHAPES)
+def test_dense_to_csr_kernel_edges(cuda, m, n, dtype, triu, truncate, offset):
+    """K2/K4 bit for bit against the plain version and K7; one launch
+    counted per call."""
+    if triu and m != n:
+        pytest.skip("triu takes a square matrix")
+    _, dense = _random(m, n, 0.4, m + n, dtype, cuda)
+    if offset:  # the same matrix at an address one element past a 16-byte boundary
+        moved = torch.empty(m * n + offset, dtype=dtype, device=cuda)[offset:].view(m, n)
+        dense = moved.copy_(dense)
+    nnz = int(torch.count_nonzero(torch.triu(dense) if triu else dense))
+    cap = max(nnz // 2, 1) if truncate else tsmm.bucket_capacity(nnz)
+    key = "dense_to_csr_triu" if triu else "dense_to_csr"
+    before = LAUNCHES[key]
+    got = ck.dense_to_csr(dense, cap, triu=triu)
+    torch.cuda.synchronize()
+    assert LAUNCHES[key] == before + 1
+    for g, w in zip(got, ck.dense_to_csr_plain(dense, cap, triu=triu)):
+        assert torch.equal(g, w)
+    if not triu:
+        for g, w in zip(got, ck.dense_to_csr_fused(dense, cap)):
+            assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("triu", [False, True])
+def test_dense_to_csr_kernel_pads_a_capacity_far_above_the_entries(cuda, triu):
+    _, dense = _random(130, 130, 0.05, 4, torch.float64, cuda)
+    for cap in (1 << 22, 0):
+        got = ck.dense_to_csr(dense, cap, triu=triu)
+        for g, w in zip(got, ck.dense_to_csr_plain(dense, cap, triu=triu)):
+            assert torch.equal(g, w)
 
 
 @pytest.mark.parametrize("split3", [False, True])
@@ -388,6 +435,9 @@ def _k6_operands(case):
         ad[3 * 128:] = 0
         ad[128:256, :128] = 1.0
         bd = _block_sparse(3, 4, 0.5, seed=5)
+    elif case == "long_run":  # every output block a run of 6 pairs
+        ad = _block_sparse(2, 6, 1.0, seed=7)
+        bd = _block_sparse(6, 2, 1.0, seed=8)
     elif case == "single_pair":
         ad = np.zeros((3 * 128, 3 * 128), np.float32)
         bd = np.zeros((3 * 128, 3 * 128), np.float32)
@@ -402,10 +452,12 @@ def _k6_operands(case):
 
 @pytest.mark.parametrize("padded", [False, True])
 @pytest.mark.parametrize("case", [(1, 1, 1), (3, 4, 3), (5, 3, 4), "ragged", "empty_block_rows",
-                                  "single_pair"])
+                                  "single_pair", "long_run"])
 def test_bsr_bsr_matmul_dense_kernel(cuda, case, padded):
     """Against the plain version, on the real pairs or the planner's padded
-    tables; output blocks no pair visits are exactly zero."""
+    tables; output blocks no pair visits are exactly zero.  One call is two
+    splits, the run check and the GEMM; the GEMM alone on the pieces gives
+    K6's bits, within 1e-6 (|A| |B|) of the six passes of those pieces."""
     ad, bd = _k6_operands(case)
     a_sp, b_sp = sp.csr_matrix(ad), sp.csr_matrix(bd)
     plan = kb.bsr_pair_plan(a_sp, b_sp, 128)
@@ -413,16 +465,82 @@ def test_bsr_bsr_matmul_dense_kernel(cuda, case, padded):
     tables = [torch.from_numpy(plan[k][:n]).to(cuda) for k in ("pa", "pb", "ci", "cj", "first")]
     mask = torch.from_numpy(plan["mask"]).to(cuda)
     a, b = _bsr(ad, cuda), _bsr(bd, cuda)
-    before = LAUNCHES["bsr_bsr_matmul_dense"]
+    before = dict(LAUNCHES)
     got = kb.bsr_bsr_matmul_dense(a, b, *tables, mask)
     torch.cuda.synchronize()
-    assert LAUNCHES["bsr_bsr_matmul_dense"] == before + 1
+    for key, more in (("bsr_bsr_matmul_dense", 1), ("bsr_pair_runs", 1), ("split_bf16", 2)):
+        assert LAUNCHES[key] == before[key] + more, key
     assert got.shape == (ad.shape[0], bd.shape[1])
     _assert_within_bound(got, kb.bsr_bsr_matmul_dense_plain(a, b, *tables, mask), ad, bd, cuda)
-    nbr, nbc = plan["mask"].shape
     visited = np.repeat(np.repeat(plan["mask"], 128, axis=0), 128, axis=1)
     visited = torch.from_numpy(visited[: ad.shape[0], : bd.shape[1]]).to(cuda)
     assert bool((got[~visited] == 0).all())
+    ap, bp = kb.bsr_bsr_split(a, b)
+    assert torch.equal(kb.bsr_bsr_matmul_dense_pieces(ap, bp, a, b, *tables, mask), got)
+    six = kb.bsr_bsr_matmul_dense_pieces_plain(ap, bp, a, b, *tables, mask)
+    unit = torch.from_numpy(np.abs(ad).astype(np.float64) @ np.abs(bd).astype(np.float64)).to(cuda)
+    assert bool(((got.double() - six.double()).abs() <= 1e-6 * unit).all())
+    runs = kb.bsr_pair_runs(a, b, *tables[:4])
+    for g, w in zip(runs, kb.bsr_pair_runs_plain(a, b, *tables[:4])):
+        assert torch.equal(g, w)
+
+
+def test_bsr_bsr_matmul_dense_kernel_writes_every_block(cuda, monkeypatch):
+    """The output is allocated uninitialised: here every f32 matrix that
+    ``torch.empty`` hands out is NaN-filled, so a block the kernel failed to
+    write (visited or not, masked out or not) would show as NaN."""
+    real_empty = torch.empty
+
+    def nan_empty(*shape, **kw):
+        out = real_empty(*shape, **kw)
+        return out.fill_(float("nan")) if out.dtype == torch.float32 and out.ndim == 2 else out
+
+    ad, bd = _k6_operands("empty_block_rows")
+    plan = kb.bsr_pair_plan(sp.csr_matrix(ad), sp.csr_matrix(bd), 128)
+    tables = [torch.from_numpy(plan[k]).to(cuda) for k in ("pa", "pb", "ci", "cj", "first")]
+    a, b = _bsr(ad, cuda), _bsr(bd, cuda)
+    mask = torch.from_numpy(plan["mask"]).to(cuda)
+    masked = mask.clone()
+    masked.view(-1)[int(torch.nonzero(mask.view(-1))[0])] = False  # a visited block masked out
+    for m in (mask, masked):
+        want = kb.bsr_bsr_matmul_dense_plain(a, b, *tables, m)
+        monkeypatch.setattr(torch, "empty", nan_empty)
+        got = kb.bsr_bsr_matmul_dense(a, b, *tables, m)
+        monkeypatch.setattr(torch, "empty", real_empty)
+        assert not bool(torch.isnan(got).any())
+        _assert_within_bound(got, want, ad, bd, cuda)
+        assert torch.equal(got == 0, want == 0)
+
+
+def test_bsr_bsr_matmul_dense_kernel_syncs_once(cuda):
+    """One K6 call reads one flag word on the host, and nothing else."""
+    ad, bd = _k6_operands((3, 4, 3))
+    plan = kb.bsr_pair_plan(sp.csr_matrix(ad), sp.csr_matrix(bd), 128)
+    tables = [torch.from_numpy(plan[k]).to(cuda) for k in ("pa", "pb", "ci", "cj", "first")]
+    mask = torch.from_numpy(plan["mask"]).to(cuda)
+    a, b = _bsr(ad, cuda), _bsr(bd, cuda)
+    kb.bsr_bsr_matmul_dense(a, b, *tables, mask)  # warm: the build, first launches
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            kb.bsr_bsr_matmul_dense(a, b, *tables, mask)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    syncs = [w for w in caught if "synchroniz" in str(w.message)]
+    assert len(syncs) == 1, [str(w.message) for w in caught]
+
+
+def test_bsr_bsr_matmul_dense_kernel_rejects_unsorted_tables(cuda):
+    ad, bd = _k6_operands((3, 4, 3))
+    plan = kb.bsr_pair_plan(sp.csr_matrix(ad), sp.csr_matrix(bd), 128)
+    n = plan["n_pairs"]
+    tables = [torch.from_numpy(plan[k][:n][::-1].copy()).to(cuda)
+              for k in ("pa", "pb", "ci", "cj", "first")]
+    a, b = _bsr(ad, cuda), _bsr(bd, cuda)
+    with pytest.raises(ValueError):
+        kb.bsr_bsr_matmul_dense(a, b, *tables, torch.from_numpy(plan["mask"]).to(cuda))
 
 
 def test_bsr_kernels_reject_other_types_and_block_sizes(cuda):
@@ -636,10 +754,17 @@ def test_cuda_tensors_never_reach_a_plain_version(cuda, monkeypatch):
     h = tsmm.from_scipy(sp.random(1100, 800, density=0.1, random_state=22), device=cuda)
     q = tsmm.from_scipy(sp.random(800, 800, density=0.1, random_state=23), device=cuda)
     tsmm.triple_product(h, q, 1, precision="fast")
+    ad, bd = _k6_operands((3, 4, 3))
+    plan = kb.bsr_pair_plan(sp.csr_matrix(ad), sp.csr_matrix(bd), 128)
+    kb.bsr_bsr_matmul_dense(_bsr(ad, cuda), _bsr(bd, cuda),
+                            *[torch.from_numpy(plan[k]).to(cuda) for k in ("pa", "pb", "ci", "cj",
+                                                                            "first")],
+                            torch.from_numpy(plan["mask"]).to(cuda))
     torch.cuda.synchronize()
     assert torch.equal(back, dense)
     for key, n in (("dense_to_csr_fused", 1), ("csr_to_dense_fused", 1), ("dense_to_csr", 1),
-                   ("csr_to_dense", 3), ("matmul_triu", 1), ("split_bf16", 2)):
+                   ("csr_to_dense", 3), ("matmul_triu", 1), ("split_bf16", 4),
+                   ("bsr_pair_runs", 1), ("bsr_bsr_matmul_dense", 1)):
         assert LAUNCHES[key] == before[key] + n, key
 
 

@@ -2,7 +2,8 @@
 package's Pallas kernels run in interpret mode, on identical inputs.
 
 K1 matmul_triu (both branches), K3 csr_to_dense, K4 dense_to_csr and K2
-dense_to_csr_triu; and K3's flat tiling, which the CUDA kernel walks.
+dense_to_csr_triu (also at widths whose rows are not 16-byte aligned, in f32
+and f64); and K3's flat tiling, which the CUDA kernel walks.
 The CUDA versions are held against these plain versions on the card
 (tests/test_torch_cuda.py, chip_smoke.py).
 """
@@ -15,6 +16,7 @@ import torch
 import jax.numpy as jnp
 
 from sparse_matrix_mult_tpu import from_scipy as jax_from_scipy
+from sparse_matrix_mult_tpu.ops.convert import dense_to_csr as jax_dense_to_csr
 from sparse_matrix_mult_tpu.ops.pallas.convert_kernels import (
     csr_to_dense_pallas,
     dense_to_csr_pallas,
@@ -186,3 +188,34 @@ def test_densify_tiling_covers_the_output_once(m, n, itemsize, sms):
     if m * n * itemsize >= sms * ck.DENSIFY_CTAS_PER_SM * ck.DENSIFY_BUFFER:
         assert tile * itemsize == ck.DENSIFY_BUFFER
         assert ctas > (sms * ck.DENSIFY_CTAS_PER_SM) // 2
+
+
+@pytest.mark.parametrize("truncate", [False, True])
+@pytest.mark.parametrize("triu", [False, True])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("n", [1, 3, 5, 33, 130])
+def test_dense_to_csr_plain_at_unaligned_widths_matches_jax(n, dtype, triu, truncate):
+    """K2/K4's plain version at widths whose rows are not 16-byte aligned
+    (n * itemsize not a multiple of 16), where the CUDA kernel splits each
+    row into a scalar head, 16-byte vectors and a scalar tail: against the
+    JAX package's extraction (its XLA path with ``keep``, whose indptr counts
+    past the capacity and is clamped here) and, in f32, its Pallas kernels."""
+    rng = np.random.default_rng(n + 7 * triu)
+    m = n if triu else n + 4
+    dense = ((rng.random((m, n)) < 0.5) * rng.standard_normal((m, n))).astype(dtype)
+    keep = np.triu(dense != 0) if triu else dense != 0
+    nnz = int(keep.sum())
+    cap = max(nnz // 2, 1) if truncate else _capacity(nnz)
+    got = ck.dense_to_csr(torch.from_numpy(dense), cap, triu=triu)
+    want = jax_dense_to_csr(jnp.asarray(dense), cap, keep=jnp.asarray(keep))
+    assert got[2].dtype == torch.from_numpy(dense).dtype
+    _assert_same_csr(got, (np.minimum(np.asarray(want.indptr), cap), want.indices, want.values))
+    assert int(got[0][-1]) == min(nnz, cap)
+    if dtype == np.float32:  # the Pallas extraction takes f32 only
+        if triu:
+            pallas = dense_to_csr_triu_staged(jnp.asarray(np.triu(dense)), cap, strip=64,
+                                              lane=256, scan_group=4)
+        else:
+            pallas = dense_to_csr_pallas(jnp.asarray(dense), cap)
+        _assert_same_csr(got, pallas)
+
