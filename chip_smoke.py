@@ -8,7 +8,7 @@ Phases, one line each:
   2. build   -- nvcc builds csrc/*.cu from the checkout (ptxas report shown),
                 and the HGMMA (tensor-core) and UTMALDG (TMA) instructions of
                 K1, K5 and K6 and the UBLKCP (bulk copy) instructions of K3
-                are counted in the SASS (cuobjdump -sass);
+                and K7 are counted in the SASS (cuobjdump -sass);
   3. kernels -- each hand-written kernel against its plain PyTorch version
                 on the card, at the shapes the main path gives it, with both
                 times, the largest difference, the kernel's bound (bytes or
@@ -70,7 +70,9 @@ Phases, one line each:
                 full 10k headline product, K8 (csr_to_dense_fused) on the
                 headline operand A and the packed sibling product; each bit
                 for bit against its plain version and K4/K3, K7 the same at
-                three lanes, and CUDA-event times beside K4's and K3's;
+                three lanes, and CUDA-event times beside K4's and K3's, K7
+                and K4 also as the device's time alone (K7's by kernel is
+                taken in phase 3, beside K4's on the same product);
  11. triple  -- the triple product H Q H^T through sparse_matrix_multiply
                 (use_triple_product=True, compute_full_matrix 0 and 1; H the
                 headline A, Q 10k^2 d=0.1), counted: route "triple", K3 x2,
@@ -91,8 +93,9 @@ Phases, one line each:
 
 Then a JSON line of the kernels (launches summed over the six counted paths;
 K3 also by shape).  A kernel's "ms" is its whole call on an idle stream, the
-wrapper's host work included; K3, K5 and K6 add "device_ms", the same call with
-a spin kernel queued before it, which leaves the device's time alone.  Then
+wrapper's host work included; K2-K7 add "device_ms", the same call with a
+spin kernel queued before it, which leaves the device's time alone, and K2,
+K4, K6 and K7 "kernels_us", its device time by kernel.  Then
 the nvidia-smi line, and last {"ok": true, "device": {...}}.  Any failed
 check exits non-zero; without a CUDA device, or without the package beside
 it, it exits non-zero before any result is printed.
@@ -420,7 +423,10 @@ def csr_on_card(mat) -> torch.Tensor:
 def kernel_device_us(fn, runs: int = 3) -> dict:
     """Device microseconds per call of ``fn``, by kernel (and copy), from
     ``torch.profiler``'s trace of ``runs`` warm calls: where a call's device
-    time goes."""
+    time goes.  Each kernel's time is its mean over the launches the trace
+    holds, times its launches per call: late in this long process the
+    profiler was seen to drop a call's records (on an H100, one trace held
+    one of three K7 launches and none of their memsets)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -433,8 +439,10 @@ def kernel_device_us(fn, runs: int = 3) -> dict:
     for e in prof.key_averages():
         if e.device_time_total > 0:
             # "void (anonymous namespace)::fill_rows<float, true>(float const*, ...)"
-            name = e.key.split("namespace)::")[-1].split("(")[0].strip()
-            out[name] = out.get(name, 0.0) + e.device_time_total / runs
+            name = e.key.replace("(anonymous namespace)::", "").split("(")[0]
+            name = name.removeprefix("void ").strip()
+            per_call = max(1, round(e.count / runs))
+            out[name] = out.get(name, 0.0) + e.device_time_total / e.count * per_call
     return out
 
 
@@ -818,7 +826,8 @@ def same_arrays(got, want, what: str) -> None:
 def fused_kernels(a_sp, b_sp, sa_sp, sb_sp):
     """Phase 10: K7 and K8 through their entry points at the main path's
     shapes, counted; then each output bit for bit against its plain version
-    and K4/K3, K7 at three lanes, and the times."""
+    and K4/K3, K7 at three lanes, and the times: K7 and K4 in one window,
+    each whole and on the device alone."""
     a = smt.from_scipy(a_sp, dtype=torch.float32, device=DEVICE)
     with full_fp32():
         c_head = torch.matmul(csr_to_dense(a), csr_to_dense(
@@ -868,11 +877,15 @@ def fused_kernels(a_sp, b_sp, sa_sp, sb_sp):
 
     times = {
         "k7_sib": event_ms(lambda: ck.dense_to_csr_fused(c_sib, cap_sib)),
+        "k7_sib_device": event_ms(lambda: ck.dense_to_csr_fused(c_sib, cap_sib), queued=True),
         "k7_sib_plain": event_ms(lambda: ck.dense_to_csr_fused_plain(c_sib, cap_sib)),
         "k4_sib": event_ms(lambda: ck.dense_to_csr(c_sib, cap_sib)),
+        "k4_sib_device": event_ms(lambda: ck.dense_to_csr(c_sib, cap_sib), queued=True),
         "k7_head": event_ms(lambda: ck.dense_to_csr_fused(c_head, cap_head)),
+        "k7_head_device": event_ms(lambda: ck.dense_to_csr_fused(c_head, cap_head), queued=True),
         "k7_head_plain": event_ms(lambda: ck.dense_to_csr_fused_plain(c_head, cap_head)),
         "k4_head": event_ms(lambda: ck.dense_to_csr(c_head, cap_head)),
+        "k4_head_device": event_ms(lambda: ck.dense_to_csr(c_head, cap_head), queued=True),
         "k8_a": event_ms(lambda: ck.csr_to_dense_fused(*a_csr, a.shape)),
         "k8_a_plain": event_ms(lambda: ck.csr_to_dense_fused_plain(*a_csr, a.shape)),
         "k3_a": event_ms(lambda: ck.csr_to_dense(*a_csr, a.shape)),
@@ -887,6 +900,7 @@ def fused_kernels(a_sp, b_sp, sa_sp, sb_sp):
         # Bit for bit against the plain versions, checked above.
         "dense_to_csr_fused": dict(
             max_abs_err=0.0, ms=times["k7_sib"], plain_ms=times["k7_sib_plain"],
+            device_ms=times["k7_sib_device"],
             library_ms=event_ms(lambda: c_sib.to_sparse_csr()),
             **roofline(4 * c_sib.numel() + csr_bytes(SIB_N, cap_sib))),
         "csr_to_dense_fused": dict(
@@ -897,11 +911,13 @@ def fused_kernels(a_sp, b_sp, sa_sp, sb_sp):
     t = times
     line = " | ".join([
         f"K7 {SIB_N}^2 (nnz {nnz_sib}) {timing(report['dense_to_csr_fused'])}, K4 "
-        f"{t['k4_sib']:.3f}; lanes " + ", ".join(
-            f"{lane}: {t[f'k7_sib_lane_{lane}']:.3f} ms" for lane in FUSED_LANES)
+        f"{t['k4_sib']:.3f}; device alone (queued) K7 {t['k7_sib_device']:.3f}, K4 "
+        f"{t['k4_sib_device']:.3f}; lanes "
+        + ", ".join(f"{lane}: {t[f'k7_sib_lane_{lane}']:.3f} ms" for lane in FUSED_LANES)
         + " (identical outputs)",
-        f"K7 {N}^2 full product (nnz {nnz_head}) {t['k7_head']:.3f} ms "
-        f"(plain {t['k7_head_plain']:.3f}, K4 {t['k4_head']:.3f})",
+        f"K7 {N}^2 full product (nnz {nnz_head}) {t['k7_head']:.3f} ms, device alone "
+        f"{t['k7_head_device']:.3f} (plain {t['k7_head_plain']:.3f}, K4 {t['k4_head']:.3f}, "
+        f"device alone {t['k4_head_device']:.3f})",
         f"K8 {N}^2 operand A (nnz {a_sp.nnz}) {timing(report['csr_to_dense_fused'])}, K3 "
         f"{t['k3_a']:.3f}",
         f"K8 {SIB_N}^2 packed sibling {t['k8_sib']:.3f} ms (plain {t['k8_sib_plain']:.3f}, "
@@ -1172,7 +1188,8 @@ def main() -> int:
         for kernel, instances, ops in (("triu_gemm_kernel", 2, ("HGMMA", "UTMALDG")),
                                        ("bsr_dense_kernel", 1, ("HGMMA", "UTMALDG")),
                                        ("bsr_bsr_kernel", 1, ("HGMMA", "UTMALDG")),
-                                       ("csr_to_dense_kernel", 2, ("UBLKCP",))):
+                                       ("csr_to_dense_kernel", 2, ("UBLKCP",)),
+                                       ("fused_extract_kernel", 2, ("UBLKCP",))):
             found = [v for k, v in sass.items() if kernel in k]
             require(len(found) == instances and all(v[op] > 0 for v in found for op in ops),
                     f"the SASS of {kernel} lacks {'/'.join(ops)}: {sass}")
@@ -1268,6 +1285,10 @@ def main() -> int:
     c_sib = torch.matmul(csr_to_dense(sa), csr_to_dense(sb))
     ext_sib_triu = compare_extract(torch.triu(c_sib), triu=True)
     ext_sib_full = compare_extract(c_sib, triu=False)
+    # K7's device time by kernel on the same product, here: asked in phase
+    # 10, late in the run, the profiler held some or none of its records.
+    k7_kernels_us = kernel_device_us(
+        lambda: ck.dense_to_csr_fused(c_sib, smt.bucket_capacity(ext_sib_full["nnz"])))
     del c_sib, sa, sb
     timing_keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "device_ms",
                    "kernels_us")
@@ -1300,7 +1321,9 @@ def main() -> int:
            f" of its bound) against K1 whole {r['whole_ms']:.3f} ms" for branch, r in k1_parts.items()]
         + [ext(f"K2 {N}^2 triu", ext_10k_triu), ext(f"K4 {N}^2 full", ext_10k_full),
            ext(f"K2 {SIB_N}^2 triu", ext_sib_triu),
-           ext(f"K4 {SIB_N}^2 ({ext_sib_full['nnz'] / SIB_N**2:.3f} dense)", ext_sib_full)]))
+           ext(f"K4 {SIB_N}^2 ({ext_sib_full['nnz'] / SIB_N**2:.3f} dense)", ext_sib_full),
+           f"K7 {SIB_N}^2 by kernel (us): "
+           + ", ".join(f"{k} {us:.1f}" for k, us in k7_kernels_us.items())]))
 
     # 3b. K1's branches against the f64 oracle, and the split3 gate
     t0 = time.perf_counter()
@@ -1519,6 +1542,7 @@ def main() -> int:
     t0 = time.perf_counter()
     fused_report, fused_per_call, launches_fused, line = fused_kernels(a_sp, b_sp, sa_sp, sb_sp)
     report.update(fused_report)
+    report["dense_to_csr_fused"]["kernels_us"] = k7_kernels_us  # phase 3's
     phase("fused-kernels", t0, line)
 
     # 11. the triple product H Q H^T (H the headline A), counted, and its times
@@ -1553,8 +1577,8 @@ def main() -> int:
             "launches_by_request": {label: n[key] for label, n in by_request.items()},
             **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                                  "library_ms")},
-            **{k: r[k] for k in ("device_ms", "forms", "parts", "shapes", "pieces_rel_err",
-                                 "split3_rel_err") if k in r},
+            **{k: r[k] for k in ("device_ms", "kernels_us", "forms", "parts", "shapes",
+                                 "pieces_rel_err", "split3_rel_err") if k in r},
         })
     print(json.dumps({"kernels": kernels}))
     print(smi)

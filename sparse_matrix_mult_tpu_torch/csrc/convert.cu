@@ -91,6 +91,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "extract.cuh"
 #include "smem_limit.cuh"
 
 namespace {
@@ -240,12 +241,6 @@ csr_to_dense_kernel(const int32_t* __restrict__ indptr, const int32_t* __restric
 constexpr int kExtractUnroll = 4;  // 16-byte vectors per lane per step
 constexpr int kScanThreads = 1024;
 
-template <typename T>
-union Vec16 {
-  uint4 raw;
-  T e[16 / sizeof(T)];
-};
-
 // A row's segment [c0, n): `head` scalars up to the first 16-byte boundary,
 // `nvec` vectors of V elements from column c0 + head, then the scalar tail
 // from column `tail`.
@@ -352,12 +347,6 @@ __device__ __forceinline__ void fill_scalars(const T* __restrict__ in, int64_t c
   pos += __popc(mask);
 }
 
-// Where entry `slot` of a warp's staged step lies in its shared buffer: one
-// spare word after every 32, so that lanes ranking V entries each (slots V
-// apart) store to distinct banks, and 32 consecutive slots read back
-// conflict-free.
-__device__ __forceinline__ int staged(int slot) { return slot + (slot >> 5); }
-
 // indptr holds the exclusive scan of the counts, clamped at capacity.
 template <typename T, bool kTriu>
 __global__ void __launch_bounds__(kThreads)
@@ -365,7 +354,7 @@ fill_rows(const T* __restrict__ dense, int64_t m, int64_t n, const int32_t* __re
           int64_t capacity, int32_t* __restrict__ indices, T* __restrict__ values) {
   constexpr int V = RowSegment<T>::V;
   constexpr int kStepVecs = kWarp * kExtractUnroll;  // vectors of a warp's step
-  constexpr int kStaged = kStepVecs * V + kStepVecs * V / 32;
+  constexpr int kStaged = staged_words(kStepVecs * V);
   // A warp's entries of one step, in column order (staged), written out from
   // here with consecutive lanes on consecutive positions.
   __shared__ int32_t s_col[kWarpsPerBlock][kStaged];

@@ -61,8 +61,8 @@ _SIGNATURES = {
     "smm_bsr_pair_runs": [_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _P, _P, _P],
     "smm_bsr_bsr_matmul_dense_bf16": [_P] * 8 + [_I64] * 6 + [_P],
     "smm_bsr_bsr_matmul_dense_f32": [_P] * 8 + [_I64, _P, _P, _P, _P] + [_I64] * 6 + [_P],
-    "smm_dense_to_csr_fused_f32": [_P, _I64, _I64, _I64, _I64, _P, _P, _P, _P, _P],
-    "smm_dense_to_csr_fused_f64": [_P, _I64, _I64, _I64, _I64, _P, _P, _P, _P, _P],
+    "smm_dense_to_csr_fused_f32": [_P] + [_I64] * 7 + [_P] * 5,
+    "smm_dense_to_csr_fused_f64": [_P] + [_I64] * 7 + [_P] * 5,
     "smm_csr_to_dense_fused_f32": [_P, _P, _P, _P, _I64, _I64, _I64, _P],
     "smm_csr_to_dense_fused_f64": [_P, _P, _P, _P, _I64, _I64, _I64, _P],
 }

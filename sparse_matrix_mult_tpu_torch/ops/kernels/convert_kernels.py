@@ -11,8 +11,11 @@
   replacing ``_concentrate_kernel`` and ``_concentrate_payload_kernel`` (the
   staircase extraction).
 * K7 :func:`dense_to_csr_fused` -- replaces ``_fused_extract_kernel``: K4's
-  output in one launch (count, decoupled look-back scan and fill) over
-  flat-rows of ``lane`` elements.
+  output in one launch that reads the matrix once: persistent CTAs claim
+  tiles in ticket order, a producer warp keeps them in flight by bulk copies
+  into a ring of shared stages, and a count warp, a scan warp (the
+  look-back) and eight fill warps take each tile in turn
+  (:func:`_extract_tiling`).
 * K8 :func:`csr_to_dense_fused` -- replaces ``_fused_densify_kernel``: K3's
   output in one launch, one flat-row of ``lane`` elements per CTA.
 
@@ -30,6 +33,7 @@ from __future__ import annotations
 
 import functools
 import operator
+from typing import NamedTuple
 
 import torch
 
@@ -53,6 +57,12 @@ LANE = 8192  # default flat-row length of the fused conversions (the JAX default
 
 DENSIFY_BUFFER = 32768  # bytes of one of a K3 CTA's two shared buffers: a tile's most
 DENSIFY_CTAS_PER_SM = 3  # K3's persistent CTAs per SM (two buffers each)
+
+EXTRACT_TILE = 16384  # bytes of a K7 tile at most: one bulk copy, one stage of the ring
+EXTRACT_QUANTUM = 4096  # a K7 tile is a multiple: one 16-byte vector per fill lane
+EXTRACT_RING = 196608  # bytes of shared memory for the rings of an SM's K7 CTAs (kernel: <= 200 KB)
+EXTRACT_MAX_STAGES = 8  # the kernel's most stages (kMaxStages)
+EXTRACT_CTAS_PER_SM = 3  # K7's persistent CTAs per SM
 
 
 def _check_csr(indptr, indices, values, shape):
@@ -194,6 +204,36 @@ def _check_lane(lane) -> int:
     return lane
 
 
+class ExtractTiling(NamedTuple):
+    """K7's launch: the matrix's 16-byte-aligned span in tiles, and the ring."""
+
+    lead: int  # elements of the span before the matrix's first
+    span_bytes: int  # from the 16-byte chunk of the first element through that of the last
+    tile_bytes: int  # tile t covers span bytes [t * tile_bytes, (t + 1) * tile_bytes)
+    n_tiles: int
+    stages: int  # shared stages of a CTA's ring (>= 2)
+    ctas: int
+
+
+@functools.lru_cache(maxsize=256)
+def _extract_tiling(m: int, n: int, itemsize: int, address: int, sms: int) -> ExtractTiling:
+    """K7's tiles of the row-major (m, n) matrix at ``address`` (only its
+    remainder modulo 16 matters).  The span starts at the address rounded
+    down to 16 bytes and ends at the end rounded up, so every tile starts
+    16-byte aligned and every copy is a multiple of 16 bytes; the tiles cover
+    it once.  A tile is a power of two between ``EXTRACT_QUANTUM`` and
+    ``EXTRACT_TILE`` bytes, no more than an SM's share of a small matrix,
+    so that its tiles still spread over the ``sms`` SMs.  Each CTA's ring
+    takes its share of ``EXTRACT_RING``.  Cached: callers convert a few
+    shapes many times."""
+    lead = address % 16 // itemsize
+    span = -(-(lead + m * n) * itemsize // 16) * 16
+    per_sm = -(-span // sms)
+    tile = min(EXTRACT_TILE, max(EXTRACT_QUANTUM, 1 << (per_sm.bit_length() - 1)))
+    stages = min(EXTRACT_MAX_STAGES, EXTRACT_RING // (EXTRACT_CTAS_PER_SM * tile))
+    return ExtractTiling(lead, span, tile, -(-span // tile), stages, sms * EXTRACT_CTAS_PER_SM)
+
+
 def dense_to_csr_fused_plain(c: torch.Tensor, capacity: int):
     """K7's plain version: K4's, since the outputs are identical."""
     return dense_to_csr_plain(c, capacity)
@@ -201,7 +241,9 @@ def dense_to_csr_fused_plain(c: torch.Tensor, capacity: int):
 
 def dense_to_csr_fused(c: torch.Tensor, capacity: int, lane: int = LANE):
     """Packed ``(indptr, indices, values)`` of the nonzeros of ``c`` in one
-    launch (K7), over flat-rows of ``lane`` elements (a power of two >= 32).
+    launch (K7) that reads ``c`` once.  ``lane`` (a power of two >= 32) is
+    the TPU kernel's flat-row; the CUDA kernel's tiles (powers of two, from
+    the 16-byte boundary at or before ``c``) nest with it.
 
     The output is K4's (:func:`dense_to_csr`), truncation at ``capacity``
     included; it does not depend on ``lane``.
@@ -219,12 +261,14 @@ def dense_to_csr_fused(c: torch.Tensor, capacity: int, lane: int = LANE):
     values = torch.empty(capacity, dtype=c.dtype, device=c.device)
     if m * n == 0:  # no entries: nothing to launch
         return indptr.zero_(), indices.zero_(), values.zero_()
-    n_tiles = -(-m * n // lane)
-    # One status word per flat-row, then the ticket counter; zero before every launch.
-    status = torch.zeros(n_tiles + 1, dtype=torch.int64, device=c.device)
+    size = c.element_size()
+    tiling = _extract_tiling(m, n, size, c.data_ptr() % 16, _sm_count(c.device))
+    # One status word per tile, then the ticket counter: zeroed in the C call.
+    status = torch.empty(tiling.n_tiles + 1, dtype=torch.int64, device=c.device)
     code = getattr(_build.load(), f"smm_dense_to_csr_fused_{_FLOATS[c.dtype]}")(
-        c.data_ptr(), m, n, lane, capacity, status.data_ptr(), indptr.data_ptr(),
-        indices.data_ptr(), values.data_ptr(), _build.stream_ptr(c.device),
+        c.data_ptr() - tiling.lead * size, tiling.lead, m, n, capacity, tiling.tile_bytes,
+        tiling.stages, tiling.ctas, status.data_ptr(), indptr.data_ptr(), indices.data_ptr(),
+        values.data_ptr(), _build.stream_ptr(c.device),
     )
     _build.LAUNCHES["dense_to_csr_fused"] += 1
     _build.check(code, "dense_to_csr_fused")

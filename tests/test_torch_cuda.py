@@ -656,6 +656,124 @@ def test_fused_kernels_reject_bad_inputs(cuda):
                               device=cuda), torch.zeros(4, device=cuda), (4, 4))
 
 
+def _bits(t):
+    """The bit patterns of a float tensor: NaN compares equal to itself."""
+    return t.view(torch.int32 if t.element_size() == 4 else torch.int64)
+
+
+def _k7_against_plain_and_k4(dense, cap, lane=ck.LANE, plain=True):
+    """K7 bit for bit against K4 and (unless the matrix is too large for it)
+    its plain version, one launch counted."""
+    before = LAUNCHES["dense_to_csr_fused"]
+    got = ck.dense_to_csr_fused(dense, cap, lane=lane)
+    torch.cuda.synchronize()
+    assert LAUNCHES["dense_to_csr_fused"] == before + 1
+    wants = [ck.dense_to_csr(dense, cap)] + ([ck.dense_to_csr_fused_plain(dense, cap)] if plain else [])
+    for want in wants:
+        for g, w, field in zip(got, want, ("indptr", "indices", "values")):
+            assert torch.equal(_bits(g) if field == "values" else g,
+                               _bits(w) if field == "values" else w), (field, cap, lane)
+    return got
+
+
+# Rows that straddle flat-rows and K7's tiles (n > lane, n no multiple of it),
+# lane 32 and lane 2^17 (past any tile), many rows shorter than a vector.
+K7_SHAPES = [(37, 5000, 2048), (300, 9999, 4096), (3, 70_001, 32), (5, 40_000, 1 << 17),
+             (2000, 777, 1 << 17), (4097, 3, 32), (700, 900, 16384)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("m,n,lane", K7_SHAPES)
+def test_dense_to_csr_fused_kernel_rows_across_flat_rows(cuda, m, n, lane, dtype):
+    """At a capacity with room to pad, one that ends among the entries, and 0."""
+    _, dense = _random(m, n, 0.3, m + n, dtype, cuda)
+    nnz = int(torch.count_nonzero(dense))
+    for cap in (tsmm.bucket_capacity(nnz), nnz // 2 + 17, 0):
+        _k7_against_plain_and_k4(dense, cap, lane)
+
+
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_dense_to_csr_fused_kernel_off_a_16_byte_boundary(cuda, offset):
+    """A matrix that starts `offset` f32 elements past a 16-byte boundary:
+    the tiles are shifted, the elements before and after it are masked."""
+    m, n = 1500, 2049
+    _, dense = _random(m, n, 0.3, offset, torch.float32, cuda)
+    moved = torch.full((m * n + offset + 3,), 7.0, device=cuda)[offset:offset + m * n].view(m, n)
+    moved.copy_(dense)
+    cap = tsmm.bucket_capacity(int(torch.count_nonzero(dense)))
+    _k7_against_plain_and_k4(moved, cap)
+
+
+@pytest.mark.parametrize("lane", [32, 8192])
+def test_dense_to_csr_fused_kernel_capacity_inside_a_flat_row(cuda, lane):
+    _, dense = _random(600, 1000, 0.2, 5, torch.float32, cuda)
+    live = (dense.reshape(-1) != 0).long()
+    per_row = live[: live.numel() // lane * lane].view(-1, lane).sum(1)
+    r = per_row.numel() // 2
+    r += int(torch.nonzero(per_row[r:] >= 2)[0])
+    cap = int(per_row[:r].sum()) + int(per_row[r]) // 2  # strictly inside flat-row r
+    got = _k7_against_plain_and_k4(dense, cap, lane)
+    assert int(got[0][-1]) == cap
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_dense_to_csr_fused_kernel_all_zero_and_one_last_element(cuda, dtype):
+    dense = torch.zeros((1000, 1003), dtype=dtype, device=cuda)
+    for cap in (0, 64):
+        assert not _k7_against_plain_and_k4(dense, cap)[0].any()
+    dense[-1, -1] = 2.5
+    for cap in (0, 1, 64):
+        indptr, indices, values = _k7_against_plain_and_k4(dense, cap)
+    assert int(indptr[-1]) == 1 and int(indptr[-2]) == 0
+    assert int(indices[0]) == 1002 and float(values[0]) == 2.5
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_dense_to_csr_fused_kernel_keeps_nan_and_drops_negative_zero(cuda, dtype):
+    _, dense = _random(500, 700, 0.1, 6, dtype, cuda)
+    dense[::7, ::3] = -0.0
+    dense[100] = -0.0
+    dense[3, 5] = dense[-1, -1] = dense[0, 0] = float("nan")
+    nnz = int(torch.count_nonzero(dense))
+    indptr, indices, values = _k7_against_plain_and_k4(dense, tsmm.bucket_capacity(nnz))
+    assert int(indptr[-1]) == nnz and int(indptr[101] - indptr[100]) == 0
+    assert int(torch.isnan(values).sum()) == 3
+
+
+def test_dense_to_csr_fused_kernel_back_to_back(cuda):
+    """50 calls queued with no synchronize between them, the shapes taking
+    turns so that a call has more tiles than the one before: each call's
+    status words and ticket start from zero."""
+    mats = [_random(m, n, 0.3, i, torch.float32, cuda)[1]
+            for i, (m, n) in enumerate([(1000, 1000), (3000, 2000), (77, 5000)])]
+    caps = [tsmm.bucket_capacity(int(torch.count_nonzero(x))) for x in mats]
+    outs = [ck.dense_to_csr_fused(mats[i % 3], caps[i % 3]) for i in range(50)]
+    torch.cuda.synchronize()
+    wants = [ck.dense_to_csr(x, cap) for x, cap in zip(mats, caps)]
+    for i, out in enumerate(outs):
+        for g, w in zip(out, wants[i % 3]):
+            assert torch.equal(g, w), i
+
+
+def test_dense_to_csr_fused_kernel_past_2_to_the_31_elements(cuda):
+    """(2, 2^30 + 64) f32, 8.6 GB: flat positions past 2^31 and 32-bit
+    columns past 2^30, against the known entries and K4 (the plain version
+    would take far more memory)."""
+    m, n = 2, 2**30 + 64
+    entries = [(0, 7, 1.5), (0, 2**30 + 60, -2.0), (1, 0, 3.0), (1, 2**30 - 3, 4.0),
+               (1, 2**30 + 63, 5.0)]
+    dense = torch.zeros((m, n), device=cuda)
+    for r, c, v in entries:
+        dense[r, c] = v
+    for cap in (8, 4):
+        indptr, indices, values = _k7_against_plain_and_k4(dense, cap, plain=False)
+        kept = entries[:cap]
+        assert indptr.tolist() == [0, min(2, cap), min(5, cap)]
+        assert indices.tolist() == [c for _, c, _ in kept] + [0] * (cap - len(kept))
+        assert values.tolist() == [v for _, _, v in kept] + [0.0] * (cap - len(kept))
+    del dense
+
+
 def _f64_triple(h, q, device):
     h64 = torch.from_numpy(h.toarray()).to(device)
     q64 = torch.from_numpy(q.toarray()).to(device)

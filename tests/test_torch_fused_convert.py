@@ -171,3 +171,73 @@ def test_cpu_tensors_launch_nothing():
     c = torch.eye(40)
     ck.csr_to_dense_fused(*ck.dense_to_csr_fused(c, 64), (40, 40))
     assert LAUNCHES == before
+
+
+# n > lane and lane dividing no row: rows straddle flat-rows.
+STRADDLE_CASES = [(4, 700, 0.3, 256), (2, 1500, 0.2, 512), (7, 300, 0.5, 128)]
+
+
+@pytest.mark.parametrize("m,n,d,lane", STRADDLE_CASES)
+def test_dense_to_csr_fused_plain_matches_pallas_across_flat_rows(m, n, d, lane):
+    _, dense = _signed(m, n, d, 6, np.float32)
+    cap = _capacity(int(np.count_nonzero(dense)))
+    want = jax_dense_to_csr_fused(jnp.asarray(dense), cap, lane=lane)
+    _assert_same(ck.dense_to_csr_fused(_t(dense), cap, lane=lane), want)
+
+
+def _scipy_truncated(dense, cap):
+    """The first ``cap`` entries of scipy's CSR, indptr clamped, zero padding."""
+    ref = sp.csr_matrix(dense)
+    kept = min(ref.nnz, cap)
+    indices = np.zeros(cap, np.int32)
+    values = np.zeros(cap, dense.dtype)
+    indices[:kept] = ref.indices[:kept]
+    values[:kept] = ref.data[:kept]
+    return np.minimum(ref.indptr, cap), indices, values
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("m,n,d,lane", STRADDLE_CASES + [(30, 1000, 0.1, 32)])
+def test_dense_to_csr_fused_truncates_like_k4(m, n, d, lane, dtype):
+    """capacity inside a flat-row, at one entry and at 0 (the JAX fused
+    extraction needs capacity >= nnz): K4's plain version and scipy."""
+    _, dense = _signed(m, n, d, 7, dtype)
+    live = (dense.reshape(-1) != 0).astype(np.int64)
+    per_row = np.add.reduceat(live, np.arange(0, live.size, lane))
+    r = len(per_row) // 2
+    inside = int(per_row[:r].sum()) + int(per_row[r]) // 2
+    for cap in (inside, 1, 0):
+        got = ck.dense_to_csr_fused(_t(dense), cap, lane=lane)
+        for g, w in zip(got, ck.dense_to_csr_plain(_t(dense), cap)):
+            assert torch.equal(g, w), cap
+        _assert_same(got, _scipy_truncated(dense, cap))
+
+
+# K7's tiles at shapes, element sizes, addresses (their remainder modulo 16)
+# and SM counts: small matrices (one tile, tiles shrunk to spread), the
+# 12,288^2 main-path shape, and more than 2^31 elements.
+TILING_SHAPES = [(1, 1), (5, 64), (37, 1000), (1000, 1000), (4097, 3), (12_288, 12_288),
+                 (2, 2**30 + 64)]
+
+
+@pytest.mark.parametrize("sms", [1, 7, 132])
+@pytest.mark.parametrize("itemsize", [4, 8])
+@pytest.mark.parametrize("m,n", TILING_SHAPES)
+def test_extract_tiling_covers_the_matrix_once(m, n, itemsize, sms):
+    for address in range(0, 16, itemsize):
+        t = ck._extract_tiling(m, n, itemsize, address, sms)
+        # Every tile starts 16-byte aligned and copies a multiple of 16 bytes.
+        assert t.lead * itemsize == address
+        assert t.span_bytes % 16 == 0 and t.tile_bytes % ck.EXTRACT_QUANTUM == 0
+        assert t.tile_bytes & (t.tile_bytes - 1) == 0 and t.tile_bytes <= ck.EXTRACT_TILE
+        # The tiles cover the span once, and the span the matrix.
+        assert (t.n_tiles - 1) * t.tile_bytes < t.span_bytes <= t.n_tiles * t.tile_bytes
+        assert (t.lead + m * n) * itemsize <= t.span_bytes < (t.lead + m * n) * itemsize + 16
+        # The rings fit the shared-memory budget, with a stage to load while
+        # one is written.
+        assert 2 <= t.stages <= ck.EXTRACT_MAX_STAGES
+        assert t.stages * t.tile_bytes * ck.EXTRACT_CTAS_PER_SM <= ck.EXTRACT_RING <= 200 * 1024
+        assert t.ctas == sms * ck.EXTRACT_CTAS_PER_SM
+    # A tile is no larger than an SM's share, unless that is below the quantum.
+    t = ck._extract_tiling(m, n, itemsize, 0, sms)
+    assert t.tile_bytes == ck.EXTRACT_QUANTUM or t.tile_bytes <= -(-t.span_bytes // sms)

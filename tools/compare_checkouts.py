@@ -10,17 +10,17 @@ Each turn is a process that imports sparse_matrix_mult_tpu_torch from one
 checkout (its kernels built from that checkout's csrc/) and runs, at the
 operands chip_smoke.py gives them: K1 in both branches and both forms at the
 10k headline, K3 on the 10k operand and on the inversion's Q, K2 on the 10k
-headline's upper triangle, K4 on the ~36%-dense 12,288^2 product, and K5 and
-K6 on the 8192^2 BSR operands.  For each call it reports the SHA-256 of the
-output (K1's upper triangle; K2/K4's three arrays) and its CUDA-event times,
-warm, min of 5, with chip_smoke.py's timer: the whole call on an idle stream
-(ms) and the device's time alone (device_ms).  The first turn also keeps
-its K6 product; each later turn reports its own K6's largest distance from
-it in units of (|A| |B|), for checkouts whose K6 bits differ, which must
-stay within 1e-5 (``k6_within_rtol``).  The turns run
-other, this, this, other; the last line is a JSON object with every turn's
-results and, per call, whether the two checkouts gave the same bits.  Needs
-a CUDA device.
+headline's upper triangle, K4 and K7 on the ~36%-dense 12,288^2 product, and
+K5 and K6 on the 8192^2 BSR operands.  For each call it reports the SHA-256
+of the output (K1's upper triangle; K2/K4/K7's three arrays) and its
+CUDA-event times, warm, min of 5, with chip_smoke.py's timer: the whole call
+on an idle stream (ms) and the device's time alone (device_ms).  The first
+turn also keeps its K6 product; each later turn reports its own K6's largest
+distance from it in units of (|A| |B|), for checkouts whose K6 bits differ,
+which must stay within 1e-5 (``k6_within_rtol``).  The turns run other,
+this, this, other; the last line is a JSON object with every turn's results
+and, per call, whether the two checkouts gave the same bits.  Needs a CUDA
+device.
 """
 
 import hashlib
@@ -122,6 +122,7 @@ def worker(root: str, k6_first: str) -> dict:
                        ck.csr_to_dense(sb.indptr, sb.indices, sb.values, sb.shape))
     cap = smt.bucket_capacity(int(torch.count_nonzero(c)))
     run("k4_12288", lambda: ck.dense_to_csr(c, cap))
+    run("k7_12288", lambda: ck.dense_to_csr_fused(c, cap))
     return out
 
 
