@@ -23,7 +23,10 @@ Phases, one line each:
                 to the other, each within 1e-5 of (|A| |B|) of its plain
                 version, split3's bits unlike HIGHEST's; K1's two splits
                 and its GEMM alone timed in one window; the bf16 split K1
-                starts with, bit for bit;
+                starts with, bit for bit; K2 and K4 bit for bit against
+                their plain version at every product the counted requests
+                extract (each chunk's product of request (e) of phase 13
+                among them; the BSR request's triangle in phase 7);
      split3-gate -- K1's branches against the f64 oracle at the three
                 configurations of benchmarks/results_accuracy_tpu.json
                 (split3's error at least twice HIGHEST's, which shows that
@@ -89,10 +92,39 @@ Phases, one line each:
                 covariance within 1e-3 of each one's largest entry), with
                 kappa_2(S); then (inversion-timing) both warm, min of 3,
                 and K1's transpose_b form in both branches against its plain
-                version (as in phase 3) at the (T, H) the inversion gives it.
+                version (as in phase 3) at the (T, H) the inversion gives it;
+ 13. esc-main -- the sparse-output ladder below the dense route: six
+                requests through sparse_matrix_multiply on hypersparse
+                operands (non-negative values), counted, each route checked:
+                (a) 200,000^2 with nnz 2e6 per operand, plain and symmetric
+                ("esc_binned"), (b) the same with use_binned_esc=False and
+                esc_expand_limit 2^25 ("esc_windowed"), (c) 40,000 x 50,000
+                with one entry per row times 50,000^2 at d = 0.002 ("esc"),
+                (d) 1,000,000^2 with nnz 7e6 per operand ("esc_chunks", its
+                chunk count shown), (e) 30,000 x 10,000 at d = 0.002 times
+                10,000^2 at d = 0.01 ("dense_chunks": K3 and K4 per chunk);
+                the ESC requests launch no hand kernel.  Each product
+                against scipy's (identical structure, values within the
+                oracle); (a) twice gives the same bits;
+ 14. esc-timing -- (a), (b) and (d) end to end, warm, min of 3, each
+                call's bits against the first's, and the stages of the
+                fastest call as the router timed them ([esc-stages], one
+                line each: the binned and windowed routes side by side on
+                the same operands); (a)'s engine's device time by kernel;
+                and each engine
+                device-resident (multiply(plan=...) at (a) and at
+                1,000,000^2, d = 1e-5, ~1e8 partials; the windowed engine at
+                (a), the classic at (c)): the plan's host time, the engine's
+                CUDA-event time against its bound (A and B read once, C
+                written once), the device busy share of one profiled call,
+                the peak device memory, the product against spgemm_host's,
+                and two yardsticks the port never calls: cuSPARSE SpGEMM
+                (torch.sparse.mm of the CSR tensors) and the host OpenMP
+                kernel spgemm_host.  Then one JSON line {"esc": ...}.
 
-Then a JSON line of the kernels (launches summed over the six counted paths;
-K3 also by shape).  A kernel's "ms" is its whole call on an idle stream, the
+Then a JSON line of the kernels (launches summed over the seven counted paths;
+K2, K3 and K4 also by shape: each product or operand of a counted request is
+held against the plain version in phase 3 or 7, and its launches counted).  A kernel's "ms" is its whole call on an idle stream, the
 wrapper's host work included; K2-K7 add "device_ms", the same call with a
 spin kernel queued before it, which leaves the device's time alone, and K2,
 K4, K6 and K7 "kernels_us", its device time by kernel.  Then
@@ -121,9 +153,13 @@ from sparse_matrix_mult_tpu_torch.ops.kernels import bsr_spgemm as kb
 from sparse_matrix_mult_tpu_torch.ops.kernels import convert_kernels as ck
 from sparse_matrix_mult_tpu_torch.ops.kernels import triu_matmul as tm
 from sparse_matrix_mult_tpu_torch.ops.matmul import full_fp32
+from sparse_matrix_mult_tpu_torch.ops.spgemm_binned import spgemm_esc_binned
+from sparse_matrix_mult_tpu_torch.ops.spgemm_esc import windowed_plan
 from sparse_matrix_mult_tpu_torch.models.inversion import invert, posterior_covariance
 from sparse_matrix_mult_tpu_torch.types_bsr import _tobsr_padded
-from sparse_matrix_mult_tpu_torch.utils.native import expansion_size
+from sparse_matrix_mult_tpu_torch.utils.native import (
+    expansion_size, spgemm_host)
+from sparse_matrix_mult_tpu_torch.utils.testing import hypersparse_random
 from sparse_matrix_mult_tpu_torch.utils.transfer import (
     fetch_dense_to_csr, fetch_np, fine_capacity)
 
@@ -141,6 +177,24 @@ TRIPLE_Q_SEED = 3  # Q of the triple product: N^2, DENSITY (benchmarks/run.py:27
 INV_OBS, INV_STATE, INV_H_DENSITY, INV_Q_DENSITY, INV_SEED = 4096, 16_384, 0.05, 0.002, 31
 INV_TOL = 1e-3  # |got - ref|_inf <= INV_TOL * |ref|_inf, float32 against the f64 oracle
 RTOL, ATOL = 1e-5, 1e-8  # the reference's oracle tolerance
+# The sparse-output ladder (phases 13-14), each request's operands from
+# hypersparse_random.  (a) 200,000^2, nnz 2e6 each (benchmarks/run.py:305-308):
+# ~2e7 partials, "esc_binned"; (b) the same with use_binned_esc=False and
+# esc_expand_limit raised to ESC_WINDOWED_LIMIT: "esc_windowed"; (c) one
+# entry per row of a 40,000 x 50,000 A times B 50,000^2 at d = 0.002 (~4e6
+# partials, B rows of ~100 entries: no window qualifies): "esc"; (d)
+# 1,000,000^2, nnz 7e6 each (~4.9e7 partials, past the binned budget):
+# "esc_chunks"; (e) 30,000 x 10,000 at d = 0.002 times 10,000^2 at d = 0.01
+# (m n past dense_path_limit, k n inside it, ~6e7 partials): "dense_chunks".
+# Device-resident timing also at 1,000,000^2, d = 1e-5 (~1e8 partials, the
+# single_chip row of benchmarks/results_large_sparse_cpu.json).
+ESC_N, ESC_NNZ, ESC_SEEDS = 200_000, 2_000_000, (11, 12)
+ESC_WINDOWED_LIMIT = 1 << 25
+CLASSIC_M, CLASSIC_K, CLASSIC_B_NNZ, CLASSIC_SEEDS = 40_000, 50_000, 5_000_000, (13, 14)
+CHUNKS_N, CHUNKS_NNZ, CHUNKS_SEEDS = 1_000_000, 7_000_000, (15, 16)
+DCHUNKS_M, DCHUNKS_K, DCHUNKS_A_NNZ, DCHUNKS_B_NNZ = 30_000, 10_000, 600_000, 1_000_000
+DCHUNKS_SEEDS = (17, 18)
+HYPER_N, HYPER_NNZ, HYPER_SEEDS = 1_000_000, 10_000_000, (19, 20)
 # K1's branches; each is held to RTOL * (|A| |B|) of its plain version.  Their
 # own distance (~3e-6 of |A| |B| at 10k) is inside the noise of that
 # comparison (~9e-7), so what shows that split3 ran is that its bits differ
@@ -214,8 +268,43 @@ BSR_REQUESTS = (
 )
 
 
+# The ladder's requests: (label, operands, keywords, Config keywords, route).
+ESC_REQUESTS = (
+    ("esc_binned_a", "esc", dict(), dict(), "esc_binned"),
+    ("esc_binned_symmetric_a", "esc", dict(symmetric=True), dict(), "esc_binned"),
+    ("esc_windowed_b", "esc", dict(), dict(use_binned_esc=False, esc_expand_limit=ESC_WINDOWED_LIMIT),
+     "esc_windowed"),
+    ("esc_classic_c", "classic", dict(), dict(use_binned_esc=False), "esc"),
+    ("esc_chunks_d", "chunks", dict(), dict(), "esc_chunks"),
+    ("dense_chunks_e", "dchunks", dict(), dict(), "dense_chunks"),
+)
+# The ladder's requests timed end to end with their stages (phase 14): the
+# binned and windowed routes on the same operands side by side, and the chunks.
+TIMED_ESC = ("esc_binned_a", "esc_windowed_b", "esc_chunks_d")
+
 K3_OPERAND_10K, K3_SIBLING, K3_BU = f"operand_{N}", f"sibling_operand_{SIB_N}", f"bu_{BSR_N}"
 K3_INV_H, K3_INV_Q = f"inversion_h_{INV_OBS}x{INV_STATE}", f"inversion_q_{INV_STATE}"
+# The dense-chunks request (e) densifies B once per chunk and each chunk of A.
+K3_DCHUNK_B, K3_DCHUNK_A = f"dense_chunks_b_{DCHUNKS_K}", "dense_chunks_a_rows_{}_{}"
+
+
+# The products K2 and K4 extract in the counted requests, by the labels of
+# their shapes (phases 3 and 7).
+K2_HEADLINE, K2_BSR = f"headline_triu_{N}", f"bsr_symmetric_triu_{BSR_N}"
+K4_SIBLING, K4_DCHUNK = f"sibling_product_{SIB_N}", "dense_chunks_product_rows_{}_{}"
+
+
+def extract_operands() -> dict:
+    """By kernel key, the products K2 and K4 extract in each counted request,
+    in order (the dense-chunks request (e) extracts each chunk's product)."""
+    return {
+        "dense_to_csr_triu": {"headline_symmetric_10k": (K2_HEADLINE,),
+                              "bsr_x_bsr_symmetric_8192": (K2_BSR,)},
+        "dense_to_csr": {
+            "nonsymmetric_12288": (K4_SIBLING,),
+            "dense_chunks_e": tuple(K4_DCHUNK.format(start, stop) for start, stop in
+                                    dense_chunk_bounds(dense_chunks_operands()[0], DCHUNKS_K))},
+    }
 
 
 def k3_operands() -> dict:
@@ -232,6 +321,9 @@ def k3_operands() -> dict:
         **{f"triple_{N}_full{cfm}": (K3_OPERAND_10K,) * 2 for cfm in (0, 1)},
         **{f"{call}_{INV_OBS}x{INV_STATE}": (K3_INV_H, K3_INV_Q) * 2
            for call in ("invert", "posterior_covariance")},
+        "dense_chunks_e": tuple(
+            label for start, stop in dense_chunk_bounds(dense_chunks_operands()[0], DCHUNKS_K)
+            for label in (K3_DCHUNK_A.format(start, stop), K3_DCHUNK_B)),
     }
 
 
@@ -463,7 +555,7 @@ def compare_extract(c: torch.Tensor, triu: bool):
     lib = event_ms(lambda: (torch.triu(c) if triu else c).to_sparse_csr())
     m, n = c.shape
     read = m * (m + 1) // 2 if triu else m * n  # K2 reads the upper triangle only
-    return dict(ms=ms, plain_ms=plain_ms, nnz=nnz, max_abs_err=err, library_ms=lib,
+    return dict(shape=[m, n], ms=ms, plain_ms=plain_ms, nnz=nnz, max_abs_err=err, library_ms=lib,
                 device_ms=event_ms(lambda: ck.dense_to_csr(c, cap, triu=triu), queued=True),
                 kernels_us=kernel_device_us(lambda: ck.dense_to_csr(c, cap, triu=triu)),
                 **roofline(read * c.element_size() + csr_bytes(m, cap, c.element_size())))
@@ -1161,6 +1253,269 @@ def inversion_phase(name: str, smi: str):
     return per_call, launches, k1i
 
 
+# ---------------------------------------------------------------------------
+# Phases 13-14: the sparse-output ladder below the dense route.  Operands
+# from utils.testing.hypersparse_random (non-negative values: no
+# cancellation zeros, so scipy's structure is Gustavson's).
+# ---------------------------------------------------------------------------
+
+def hyper_pair(m: int, k: int, n: int, nnz_a: int, nnz_b: int, seeds):
+    return hypersparse_random(m, k, nnz_a, seeds[0]), hypersparse_random(k, n, nnz_b, seeds[1])
+
+
+def one_per_row(m: int, k: int, seed: int):
+    """(m, k) CSR with one entry per row, in a uniformly random column."""
+    rng = np.random.default_rng(seed)
+    return sp.csr_matrix((rng.uniform(size=m), rng.integers(0, k, m), np.arange(m + 1)),
+                         shape=(m, k))
+
+
+def esc_operands() -> dict:
+    """The ladder's operand pairs by key (see ESC_REQUESTS)."""
+    return {
+        "esc": hyper_pair(ESC_N, ESC_N, ESC_N, ESC_NNZ, ESC_NNZ, ESC_SEEDS),
+        "classic": (one_per_row(CLASSIC_M, CLASSIC_K, CLASSIC_SEEDS[0]),
+                    hypersparse_random(CLASSIC_K, CLASSIC_K, CLASSIC_B_NNZ, CLASSIC_SEEDS[1])),
+        "chunks": hyper_pair(CHUNKS_N, CHUNKS_N, CHUNKS_N, CHUNKS_NNZ, CHUNKS_NNZ, CHUNKS_SEEDS),
+        "dchunks": dense_chunks_operands(),
+    }
+
+
+def dense_chunks_operands():
+    return hyper_pair(DCHUNKS_M, DCHUNKS_K, DCHUNKS_K, DCHUNKS_A_NNZ, DCHUNKS_B_NNZ,
+                      DCHUNKS_SEEDS)
+
+
+def dense_chunk_bounds(a_sp, n: int):
+    """Row bounds of the dense-chunks route's chunks (api._sparse_out_chunked_dense)."""
+    m = a_sp.shape[0]
+    chunk = max(1, min(m, smt.get_config().dense_path_limit // n))
+    return [(s, min(s + chunk, m)) for s in range(0, m, chunk)]
+
+
+class config_set:
+    """Config keywords set for the duration of a ``with`` block."""
+
+    def __init__(self, **kw):
+        self.kw = kw
+
+    def __enter__(self):
+        self.saved = smt.get_config()
+        smt.set_config(**self.kw)
+
+    def __exit__(self, *exc):
+        smt.set_config(self.saved)
+
+
+def esc_request(a_sp, b_sp, kw, cfg):
+    """A call for :func:`counted`: sparse_matrix_multiply under ``cfg``, its
+    route and the route's detail."""
+    def call(_):
+        with config_set(**cfg):
+            got = smt.sparse_matrix_multiply(a_sp, b_sp, **kw)
+        return got, (smt.get_last_route(), api.get_last_route_detail())
+    return call
+
+
+def same_bits(got, first, what: str) -> None:
+    require(np.array_equal(got.indptr, first.indptr) and np.array_equal(got.indices, first.indices)
+            and np.array_equal(got.data.view(np.uint64), first.data.view(np.uint64)),
+            f"{what}: a repeated call gave other bits")
+
+
+def esc_main_phase(ops: dict):
+    """Phase 13: every rung of the ladder through sparse_matrix_multiply on
+    the card, counted, each route checked, each product against scipy's
+    (identical structure, values within the oracle), request (a) twice."""
+    t0 = time.perf_counter()
+    answers = {}
+    reset_launches()
+    per_request, seconds = counted(
+        [(label, esc_request(*ops[key], kw, cfg)) for label, key, kw, cfg, _ in ESC_REQUESTS],
+        answers)
+    launches_esc = dict(LAUNCHES)
+    details = {}
+    for label, _, _, _, route in ESC_REQUESTS:
+        got_route, details[label] = answers[label][1]
+        require(got_route == route, f"{label}: route {got_route!r} != {route!r}")
+        dense_chunks = route == "dense_chunks"
+        for key in KERNELS:
+            launched = per_request[label][key]
+            if dense_chunks and key == "csr_to_dense":
+                require(launched > 0, f"{label} launched no {KERNELS[key][0]}")
+            elif not dense_chunks:
+                require(launched == 0, f"{label} launched {KERNELS[key][0]}")
+    require(details["esc_chunks_d"].get("chunks", 0) > 1, "esc_chunks ran one chunk")
+    errs, nnz, refs = {}, {}, {}
+    for label, key, kw, _, _ in ESC_REQUESTS:
+        if key not in refs:
+            refs[key] = (ops[key][0] @ ops[key][1]).tocsr()
+        ref = sp.triu(refs[key], format="csr") if kw.get("symmetric") else refs[key]
+        errs[label] = same_csr(answers[label][0], ref, label)
+        nnz[label] = answers[label][0].nnz
+    del refs
+    kept = {label: answers[label][0] for label in TIMED_ESC}
+    again = smt.sparse_matrix_multiply(*ops["esc"])
+    same_bits(again, kept["esc_binned_a"], "esc_binned_a")
+    del answers, again
+    phase("esc-main", t0, " | ".join(
+        [f"{label} ({route}{', ' + str(details[label]) if details[label] else ''}"
+         f"{', esc_expand_limit ' + str(cfg['esc_expand_limit']) if 'esc_expand_limit' in cfg else ''}"
+         f"{', use_binned_esc False' if cfg.get('use_binned_esc') is False else ''}): "
+         f"nnz {nnz[label]}, max abs err vs scipy {errs[label]:.2e}, first call "
+         f"{seconds[label]:.3f} s" for label, _, _, cfg, route in ESC_REQUESTS]
+        + ["esc_binned_a twice: the same bits",
+           "dense_chunks_e extracted by " + ("K4" if per_request["dense_chunks_e"]["dense_to_csr"]
+                                             else "host packing"),
+           f"launches by request {per_request}",
+           f"launches {launches_esc}"]))
+    return per_request, launches_esc, kept
+
+
+def route_timing(a_sp, b_sp, cfg: dict, first, label: str) -> dict:
+    """One request through sparse_matrix_multiply under ``cfg``, warm, min of
+    PATH_RUNS (each call's bits against ``first``): its seconds, and the
+    stages of that fastest call as the router recorded them
+    (api.get_last_route_stages; a per-chunk stage summed over the chunks),
+    with the rest of the call (validation, canonical copies) by difference."""
+    best = None
+    for _ in range(PATH_RUNS):
+        with config_set(**cfg):
+            t = time.perf_counter()
+            got = smt.sparse_matrix_multiply(a_sp, b_sp)
+            wall = time.perf_counter() - t
+        same_bits(got, first, label)
+        if best is None or wall < best["seconds"]:
+            stages = api.get_last_route_stages()
+            require(stages, f"{label}: route {smt.get_last_route()!r} recorded no stages")
+            best = dict(seconds=wall, route=smt.get_last_route(), **api.get_last_route_detail(),
+                        stages=dict(stages, rest=wall - sum(stages.values())))
+    best["nnz_c_per_s"] = first.nnz / best["seconds"]
+    return best
+
+
+def peak_bytes(fn) -> int:
+    """torch.cuda.max_memory_allocated() over one call of ``fn``."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated()
+
+
+def resident(a_sp, b_sp, engine: str) -> dict:
+    """Device-resident multiply on one pair through one ESC engine
+    ("binned": plan=, the router's tile; "windowed": expand_capacity= and
+    window= from windowed_plan; "classic": expand_capacity= alone): the
+    plan's host time, the engine's CUDA-event time, its device busy share in
+    one profiled call, the peak device memory, its bound (A and B read once,
+    C written once), and beside it cuSPARSE SpGEMM (torch.sparse.mm of the
+    two CSR tensors) and the host OpenMP kernel (spgemm_host), which the
+    port never calls.  The product is held against spgemm_host's f64 one."""
+    m, k = a_sp.shape
+    n = b_sp.shape[1]
+    expand = expansion_size(a_sp.indices, a_sp.nnz, b_sp.indptr)
+    cap = smt.bucket_capacity(min(expand, m * n))
+    t = time.perf_counter()
+    if engine == "binned":
+        plan = api._binned_plan_for(a_sp, b_sp, expand)
+        require(plan is not None, f"no binned plan at {m}x{k} @ {k}x{n}")
+        kw = dict(plan=plan)
+        tile = dict(window=plan.window, lane_width=plan.lane_width, padded_slots=plan.padded)
+    else:
+        kw = dict(expand_capacity=smt.bucket_capacity(expand))
+        tile = {}
+        if engine == "windowed":
+            wplan = windowed_plan(a_sp.nnz, np.diff(b_sp.indptr)[a_sp.indices], expand)
+            require(wplan is not None, f"no window plan at {m}x{k} @ {k}x{n}")
+            kw.update(window=wplan[0], tail_capacity=smt.bucket_capacity(wplan[1]) if wplan[1] else 0)
+            tile = dict(window=wplan[0], tail=wplan[1])
+    plan_s = time.perf_counter() - t
+    a = smt.from_scipy(a_sp, dtype=torch.float32, device=DEVICE)
+    b = smt.from_scipy(b_sp, dtype=torch.float32, device=DEVICE)
+    fn = lambda: smt.multiply(a, b, out_capacity=cap, **kw)  # noqa: E731
+    c = fn()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    peak = peak_bytes(fn)
+    ms = event_ms(fn, runs=3)
+    busy, wall = device_busy_s(fn)
+    t = time.perf_counter()
+    host = spgemm_host(a_sp, b_sp)
+    host_s = time.perf_counter() - t
+    got = api._to_scipy_f64(c)
+    err = same_csr(got, host, f"multiply ({engine}) {m}x{k} @ {k}x{n} against spgemm_host")
+    nnz_c = got.nnz
+    del c, got, host
+    out = dict(engine=engine, rows=m, nnz_a=a_sp.nnz, nnz_b=b_sp.nnz, n_partials=expand,
+               nnz_c=nnz_c, **tile, plan_host_s=plan_s, ms=ms, partials_per_s=expand / ms * 1e3,
+               device_busy_s=busy, wall_s=wall,
+               device_busy_share=busy / wall if busy > 0 else None,
+               peak_bytes=peak, resident_bytes_before_call=base,
+               max_abs_err_vs_spgemm_host=err, spgemm_host_s=host_s,
+               **roofline(csr_bytes(m, a_sp.nnz) + csr_bytes(k, b_sp.nnz)
+                          + csr_bytes(m, nnz_c)))
+    a_t = sparse_csr(a.indptr, a.indices, a.values, a.shape)
+    b_t = sparse_csr(b.indptr, b.indices, b.values, b.shape)
+    try:
+        lib = torch.sparse.mm(a_t, b_t)
+        out["cusparse_nnz_equal"] = int(lib._nnz()) == nnz_c
+        del lib
+        out["cusparse_peak_bytes"] = peak_bytes(lambda: torch.sparse.mm(a_t, b_t))
+        out["cusparse_ms"] = event_ms(lambda: torch.sparse.mm(a_t, b_t), runs=3)
+    except RuntimeError as e:  # a yardstick: its failure is recorded, not fatal
+        out["cusparse_ms"] = None
+        out["cusparse_error"] = str(e).splitlines()[0][:200]
+    del a, b, a_t, b_t, kw
+    torch.cuda.empty_cache()
+    return out
+
+
+def esc_timing_phase(ops: dict, kept: dict, name: str, smi: str) -> dict:
+    """Phase 14: requests (a), (b) and (d) end to end with their stages
+    (route_timing), (a)'s engine's device time by kernel, and each ESC
+    engine device-resident: binned at (a) and at the 1M^2 d = 1e-5 product,
+    windowed at (a), classic at (c)."""
+    t0 = time.perf_counter()
+    requests = {label: (key, cfg) for label, key, _, cfg, _ in ESC_REQUESTS}
+    e2e = {label: route_timing(*ops[requests[label][0]], requests[label][1], kept[label], label)
+           for label in TIMED_ESC}
+    a_sp, b_sp = ops["esc"]
+    expand = expansion_size(a_sp.indices, a_sp.nnz, b_sp.indptr)
+    plan = api._binned_plan_for(a_sp, b_sp, expand)
+    a = smt.from_scipy(a_sp, dtype=torch.float32, device=DEVICE)
+    b = smt.from_scipy(b_sp, dtype=torch.float32, device=DEVICE)
+    args = plan.device_args(DEVICE)
+    engine_us = kernel_device_us(lambda: spgemm_esc_binned(
+        a, b, *args, window=plan.window, out_capacity=smt.bucket_capacity(expand)))
+    del a, b, args, plan
+    engines = {"binned_a": resident(*ops["esc"], "binned"),
+               "windowed_a": resident(*ops["esc"], "windowed"),
+               "classic_c": resident(*ops["classic"], "classic")}
+    hyper = hyper_pair(HYPER_N, HYPER_N, HYPER_N, HYPER_NNZ, HYPER_NNZ, HYPER_SEEDS)
+    engines[f"binned_{HYPER_N}"] = resident(*hyper, "binned")
+    del hyper
+    esc = dict(card=name, nvidia_smi=smi, e2e=e2e, engine_kernels_us_esc_binned_a=engine_us,
+               resident=engines)
+    phase("esc-timing", t0, f"{name} [{smi}]: " + " | ".join(
+        [f"{label} ({r['route']}) end to end {r['seconds']:.4f} s = {r['nnz_c_per_s']:.4e} "
+         f"nnz(C)/s (min of {PATH_RUNS}, each call the same bits)" for label, r in e2e.items()]
+        + [f"multiply {label} ({r['rows']} rows): {r['n_partials']} partials ("
+           f"{', '.join(f'{key} {r[key]}' for key in ('window', 'lane_width', 'padded_slots', 'tail') if key in r)}"
+           f"), plan {r['plan_host_s']:.3f} s host, "
+           f"engine {r['ms']:.3f} ms ({r['partials_per_s']:.4e} partials/s; bound "
+           f"{r['bound_ms']:.3f} ms by {r['bound_by']}), busy share "
+           f"{r['device_busy_share'] if r['device_busy_share'] is None else round(r['device_busy_share'], 4)}, "
+           f"peak {r['peak_bytes'] / 2**30:.2f} GiB; cuSPARSE "
+           f"{r['cusparse_ms'] if r['cusparse_ms'] is None else round(r['cusparse_ms'], 3)} ms; "
+           f"spgemm_host {r['spgemm_host_s']:.3f} s" for label, r in engines.items()]))
+    for label, r in e2e.items():
+        print(f"[esc-stages] {label} ({r['route']}) sparse_matrix_multiply, host clock, the "
+              f"fastest of {PATH_RUNS} calls ({r['seconds']:.4f} s) as the router timed it: "
+              + json.dumps(r["stages"]), flush=True)
+    return esc
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -1207,9 +1562,12 @@ def main() -> int:
     # K3 at every operand the counted paths densify, bit for bit against its
     # plain version and K8; B's 10k densify checked as well.
     inv_h_sp, inv_q_sp = inversion_problem()[:2]
+    dc_a_sp, dc_b_sp = dense_chunks_operands()
     k3_shapes = {label: k3_at(mat) for label, mat in (
         (K3_OPERAND_10K, a_sp), (K3_SIBLING, sa_sp), (K3_BU, uniform_bu()), (K3_INV_H, inv_h_sp),
-        (K3_INV_Q, inv_q_sp))}
+        (K3_INV_Q, inv_q_sp), (K3_DCHUNK_B, dc_b_sp),
+        *((K3_DCHUNK_A.format(start, stop), dc_a_sp[start:stop])
+          for start, stop in dense_chunk_bounds(dc_a_sp, DCHUNKS_K)))}
     del inv_h_sp, inv_q_sp
     ad = ck.csr_to_dense(a.indptr, a.indices, a.values, a.shape)
     bd = ck.csr_to_dense(b.indptr, b.indices, b.values, b.shape)
@@ -1290,13 +1648,26 @@ def main() -> int:
     k7_kernels_us = kernel_device_us(
         lambda: ck.dense_to_csr_fused(c_sib, smt.bucket_capacity(ext_sib_full["nnz"])))
     del c_sib, sa, sb
+    # K4 at each chunk's product of the dense-chunks request (e), as the
+    # route forms it (each chunk of A's rows times B on the dense route).
+    k4_chunks = {}
+    for start, stop in dense_chunk_bounds(dc_a_sp, DCHUNKS_K):
+        chunk = dc_a_sp[start:stop]
+        dtype, _ = api._upload_dtype(chunk, dc_b_sp, DEVICE)
+        c_chunk = spgemm_dense_out(smt.from_scipy(chunk, dtype=dtype, device=DEVICE),
+                                   smt.from_scipy(dc_b_sp, dtype=dtype, device=DEVICE))
+        k4_chunks[K4_DCHUNK.format(start, stop)] = compare_extract(c_chunk, triu=False)
+        del c_chunk
+    del dc_a_sp, dc_b_sp
     timing_keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "device_ms",
                    "kernels_us")
+    k2_shapes = {K2_HEADLINE: ext_10k_triu, f"sibling_triu_{SIB_N}": ext_sib_triu}
+    k4_shapes = {f"headline_product_{N}": ext_10k_full, K4_SIBLING: ext_sib_full, **k4_chunks}
     report["dense_to_csr_triu"] = dict(
-        max_abs_err=max(ext_10k_triu["max_abs_err"], ext_sib_triu["max_abs_err"]),
+        max_abs_err=max(r["max_abs_err"] for r in k2_shapes.values()), shapes=k2_shapes,
         **{key: ext_10k_triu[key] for key in timing_keys})
     report["dense_to_csr"] = dict(
-        max_abs_err=max(ext_10k_full["max_abs_err"], ext_sib_full["max_abs_err"]),
+        max_abs_err=max(r["max_abs_err"] for r in k4_shapes.values()), shapes=k4_shapes,
         **{key: ext_sib_full[key] for key in timing_keys})
 
     def ext(label, r):
@@ -1322,6 +1693,7 @@ def main() -> int:
         + [ext(f"K2 {N}^2 triu", ext_10k_triu), ext(f"K4 {N}^2 full", ext_10k_full),
            ext(f"K2 {SIB_N}^2 triu", ext_sib_triu),
            ext(f"K4 {SIB_N}^2 ({ext_sib_full['nnz'] / SIB_N**2:.3f} dense)", ext_sib_full),
+           *(ext(f"K4 {label} {r['shape'][0]}x{r['shape'][1]}", r) for label, r in k4_chunks.items()),
            f"K7 {SIB_N}^2 by kernel (us): "
            + ", ".join(f"{k} {us:.1f}" for k, us in k7_kernels_us.items())]))
 
@@ -1445,6 +1817,11 @@ def main() -> int:
     bu_sp = uniform_bu()
     bsr_report = bsr_kernels(a_bsp, b_bsp, bu_sp)
     report.update(bsr_report)
+    # K2 at the upper triangle the symmetric BSR request extracts.
+    ext_bsr = compare_extract(api._bsr_product_host(a_bsp, b_bsp, True, DEVICE), triu=True)
+    report["dense_to_csr_triu"]["shapes"][K2_BSR] = ext_bsr
+    report["dense_to_csr_triu"]["max_abs_err"] = max(report["dense_to_csr_triu"]["max_abs_err"],
+                                                     ext_bsr["max_abs_err"])
     k5, k6 = bsr_report["bsr_matmul_dense"], bsr_report["bsr_bsr_matmul_dense"]
     phase("bsr-kernels", t0, f"{BSR_N}^2, {BSR_BLOCK}^2 blocks: K6 {timing(k6)}; "
           f"{k6['n_pairs']} pairs, {k6['visited_blocks']} of "
@@ -1466,7 +1843,8 @@ def main() -> int:
           f"whole {k5['parts']['whole_ms']:.3f} ms, its GEMM alone bit for bit K5's; device alone "
           f"(queued) {k5['device_ms']:.3f} ms; against the six passes of its pieces "
           f"{k5['pieces_rel_err']:.2e} of |A||B| (limit {K5_PIECES_TOL:.0e}; split3's three "
-          f"passes {k5['split3_rel_err']:.2e})")
+          f"passes {k5['split3_rel_err']:.2e}) | K2 {BSR_N}^2 symmetric product's triangle "
+          f"{timing(ext_bsr)}, nnz {ext_bsr['nnz']}, bit for bit its plain version")
 
     # 8. BSR path: the requests through the public entry point, counted
     t0 = time.perf_counter()
@@ -1555,11 +1933,17 @@ def main() -> int:
     inv_per_request, launches_inv, k1_inv = inversion_phase(name, smi)
     report["matmul_triu"]["forms"].update(k1_inv)
 
+    # 13-14. the sparse-output ladder, counted, and its times
+    ops = esc_operands()
+    esc_per_request, launches_esc, kept = esc_main_phase(ops)
+    esc = esc_timing_phase(ops, kept, name, smi)
+    del ops, kept
+
     kernels = []
     by_request = {**per_request, **fast_per_request, **bsr_per_request, **fused_per_call,
-                  **triple_per_request, **inv_per_request}
+                  **triple_per_request, **inv_per_request, **esc_per_request}
     path_launches = (launches_main, launches_fast, launches_bsr, launches_fused, launches_triple,
-                     launches_inv)
+                     launches_inv, launches_esc)
     k3_shapes = report["csr_to_dense"]["shapes"]
     for shape in k3_shapes.values():
         shape["launches"] = 0
@@ -1569,6 +1953,17 @@ def main() -> int:
                 f"{label}: {counts['csr_to_dense']} K3 launches, not one for each of {densified}")
         for operand in densified:
             k3_shapes[operand]["launches"] += 1
+    for key, by_label in extract_operands().items():
+        shapes = report[key]["shapes"]
+        for shape in shapes.values():
+            shape["launches"] = 0
+        for label, counts in by_request.items():
+            extracted = by_label.get(label, ())
+            require(counts[key] == len(extracted),
+                    f"{label}: {counts[key]} {KERNELS[key][0]} launches, not one for each of "
+                    f"{extracted}")
+            for operand in extracted:
+                shapes[operand]["launches"] += 1
     for key, (kname, source, replaces) in KERNELS.items():
         r = report[key]
         kernels.append({
@@ -1580,6 +1975,7 @@ def main() -> int:
             **{k: r[k] for k in ("device_ms", "kernels_us", "forms", "parts", "shapes",
                                  "pieces_rel_err", "split3_rel_err") if k in r},
         })
+    print(json.dumps({"esc": esc}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -2,10 +2,11 @@
 
 The JAX package ``sparse_matrix_mult_tpu`` is the reference this port is
 held against; the port imports neither it nor ``jax``.  The port carries
-the dense route of ``sparse_matrix_multiply`` -- sparse x sparse -> sparse or
-dense, symmetric (upper triangle) or not -- with its BSR rung for
-block-sparse operands and the host short-circuit for small problems, the
-triple product ``H Q H^T`` (``use_triple_product=True`` and the
+``sparse_matrix_multiply`` -- sparse x sparse -> sparse or dense, symmetric
+(upper triangle) or not -- with the host short-circuit for small problems,
+the dense route and its BSR rung for block-sparse operands, and the
+sparse-output ladder (the binned, windowed and classic ESC engines and the
+row-chunked rungs), the triple product ``H Q H^T`` (``use_triple_product=True`` and the
 device-resident ``triple_product``) with the inversion workflow of
 ``models.inversion``, the device-resident ``multiply``, and the BSR
 container with its BSR x dense product (``bsr_multiply_dense``).  On an

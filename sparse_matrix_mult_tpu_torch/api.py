@@ -1,15 +1,20 @@
 """Public API: the reference-compatible ``sparse_matrix_multiply`` and the
 device-resident ``multiply``.
 
-Counterpart of :mod:`sparse_matrix_mult_tpu.api`, for the slice the port
-carries so far: validation, the empty-operand path, the host short-circuit
-(native Gustavson below ``Config.host_compute_limit`` partial products), the
-dense route with device or host extraction, its BSR rung for block-sparse
-operands (K5/K6), and the triple product ``H Q H^T`` (route ``"triple"``,
-and the device-resident :func:`triple_product`).  Every other rung of the
-JAX router raises :class:`NotImplementedError` naming its ``ROADMAP.md``
-item, rather than sending the problem down the dense route under another
-structure contract.
+Counterpart of :mod:`sparse_matrix_mult_tpu.api`: validation, the
+empty-operand path, the host short-circuit (native Gustavson below
+``Config.host_compute_limit`` partial products), the dense route with device
+or host extraction and its BSR rung for block-sparse operands (K5/K6), the
+sparse-output ladder below it (the binned, windowed and classic ESC engines,
+row-chunked dense and flop-balanced row-chunked ESC), and the triple product
+``H Q H^T`` (route ``"triple"``, and the device-resident
+:func:`triple_product`).  The JAX package's host/device cost model
+(``_host_route_wins``, a model of a slow network link) is not ported: the
+port routes to the host only below ``host_compute_limit``.
+
+Every input is canonicalized (sorted indices, duplicates summed) on a copy
+before any planning, so a structure plan and the uploaded operand always
+agree (R1 in ``ROADMAP.md``).
 
 The scipy-in/scipy-out entry point computes on ``device`` (default
 ``Config.device``, ``"cuda"``); it never probes for a GPU.
@@ -18,6 +23,7 @@ The scipy-in/scipy-out entry point computes on ``device`` (default
 from __future__ import annotations
 
 import threading
+import time
 
 import numpy as np
 import scipy.sparse as sp
@@ -30,24 +36,26 @@ from .ops.dense_path import dense_path_fits, spgemm_dense_out
 from .ops.kernels.bsr_spgemm import (
     KERNEL_BLOCK, bsr_bsr_matmul_dense, bsr_matmul_dense, bsr_pair_plan)
 from .ops.matmul import resolve_precision
+from .ops.spgemm_binned import binned_plan, spgemm_esc_binned
+from .ops.spgemm_esc import spgemm_esc, spgemm_esc_windowed, windowed_plan
 from .ops.triple_product import triple_product_dense
 from .types import CSRMatrix, bucket_capacity, from_scipy, to_scipy
 from .types_bsr import _tobsr_padded, bsr_from_scipy
-from .utils.native import expansion_size, spgemm_host
+from .utils.native import csr_triu, expansion_size, row_flops, spgemm_host, stitch_csr
 from .utils.transfer import fetch_dense_to_csr, fetch_np, fine_capacity
 
 __all__ = ["sparse_matrix_multiply", "multiply", "triple_product", "get_last_route",
-           "block_occupancy"]
+           "get_last_route_detail", "get_last_route_stages", "block_occupancy"]
 
-# Route of the last sparse_matrix_multiply on this thread: "dense", "bsr",
-# "triple", "host" or "empty".
+# Route of the last sparse_matrix_multiply on this thread: "host", "dense",
+# "bsr", "esc_binned", "esc_windowed", "esc", "dense_chunks", "esc_chunks",
+# "triple" or "empty"; with its detail ("chunks" for "esc_chunks") and, on the
+# ESC routes, the host seconds of each stage.
 _ROUTE_STATE = threading.local()
 
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to sparse_matrix_mult_tpu_torch yet ({item} in ROADMAP.md)"
-    )
+# Above this many partial products the binned tile is tuned (JAX
+# api.py:678-690): a doubled window when B's rows are long, else a doubled lane.
+_BINNED_TUNE_PARTIALS = 12_000_000
 
 
 def get_last_route() -> str | None:
@@ -56,13 +64,60 @@ def get_last_route() -> str | None:
     return getattr(_ROUTE_STATE, "route", None)
 
 
-def _set_route(route: str) -> None:
+def get_last_route_detail() -> dict:
+    """Diagnostics recorded with the last route (``chunks`` for
+    ``"esc_chunks"``); an empty dict when the route recorded none."""
+    return getattr(_ROUTE_STATE, "detail", {}) or {}
+
+
+def get_last_route_stages() -> dict:
+    """Host seconds of each stage of the last :func:`sparse_matrix_multiply`
+    on the calling thread, by stage name, on the ESC routes (``"esc_binned"``,
+    ``"esc_windowed"``, ``"esc"``, ``"esc_chunks"``; a per-chunk stage is
+    summed over the chunks); an empty dict on the other routes."""
+    return getattr(_ROUTE_STATE, "stages", {}) or {}
+
+
+def _set_route(route: str, **detail) -> None:
     _ROUTE_STATE.route = route
+    _ROUTE_STATE.detail = detail
+    _ROUTE_STATE.stages = {}
+
+
+class _StageClock:
+    """Host seconds of each stage of one routed call; a stage marked more
+    than once (per chunk) sums.  On CUDA each mark first waits for the
+    device, so a stage holds the device work it queued.  The download that
+    ends every ESC route waits for that work in any case, so the marks only
+    move the wait, at a few microseconds each."""
+
+    def __init__(self, device):
+        device = torch.device(device)
+        self._cuda = device if device.type == "cuda" else None
+        self.seconds = {}
+        self._last = time.perf_counter()
+
+    def mark(self, stage: str) -> None:
+        if self._cuda is not None:
+            torch.cuda.synchronize(self._cuda)
+        now = time.perf_counter()
+        self.seconds[stage] = self.seconds.get(stage, 0.0) + now - self._last
+        self._last = now
+
+    def finish(self, route: str, **detail) -> None:
+        _set_route(route, **detail)
+        _ROUTE_STATE.stages = self.seconds
 
 
 def _coerce_csr(m):
+    """Canonical scipy CSR: sorted indices, duplicates summed.  A caller's
+    CSR matrix is never modified: a non-canonical one is copied first."""
     if not isspmatrix_csr(m):
         m = csr_matrix(m)
+    elif not m.has_canonical_format:
+        m = m.copy()
+    if not m.has_canonical_format:
+        m.sum_duplicates()
     return m
 
 
@@ -218,18 +273,56 @@ def _fetch_full_triu(c: torch.Tensor, nnz: int):
     return csr_matrix((values, indices, indptr), shape=(m, m))
 
 
+def _to_scipy_f64(c: CSRMatrix):
+    out = to_scipy(c)
+    return out if out.dtype == np.float64 else out.astype(np.float64)
+
+
+def _binned_plan_for(a_sp, b_sp, expand: int):
+    """The router's binned plan for ``a_sp @ b_sp``, or ``None``.
+
+    Above ``_BINNED_TUNE_PARTIALS`` partials the tile is tuned as in JAX
+    (``api.py:664-690``): the window doubles when B's mean row length
+    exceeds 3/4 of it, else the lane doubles.  When the tuned tile gives no
+    plan, the configured tile is tried once more before the router falls
+    back (R3 in ``ROADMAP.md``; JAX goes straight to the fallback).
+    """
+    cfg = get_config()
+    tiles = [(cfg.binned_window, cfg.binned_lane_width)]
+    if expand > _BINNED_TUNE_PARTIALS:
+        window, lane = tiles[0]
+        if b_sp.nnz / max(b_sp.shape[0], 1) > 0.75 * window:
+            tiles.insert(0, (2 * window, lane))
+        else:
+            tiles.insert(0, (window, 2 * lane))
+    for window, lane in tiles:
+        plan = binned_plan(a_sp.indptr, a_sp.indices, b_sp.indptr, window=window,
+                           lane_width=lane)
+        if plan is not None:
+            return plan
+    return None
+
+
 def _sparse_out_host(a_sp, b_sp, symmetric: bool, esc_limit: int, device):
     """sparse x sparse -> scipy CSR: the JAX strategy ladder, first match wins.
 
-    0. few partial products       -> native host Gustavson (unless force_bsr)
-    1. everything fits densely    -> dense route (unless ESC would win),
-                                     BSR kernels for a block-sparse A
-    2. ESC engines, row chunks    -> not ported yet (raise)
+    0. few partial products     -> native host Gustavson (unless force_bsr)
+    1. everything fits densely  -> dense route (unless ESC would win),
+                                   BSR kernels for a block-sparse A
+    2. expansion within budget  -> binned ESC, else windowed or classic ESC
+    3. B's panel fits densely   -> equal-row dense chunks
+    4. otherwise                -> flop-balanced ESC chunks
+
+    Every engine runs on ``device``; ``keep_structure`` skips the routes that
+    prune exact zeros (1 and 3).  The ESC routes record their stages'
+    host seconds (:func:`get_last_route_stages`).
     """
     m, k = a_sp.shape
     n = b_sp.shape[1]
     cfg = get_config()
+    clock = _StageClock(device)
     expand = expansion_size(a_sp.indices, a_sp.nnz, b_sp.indptr)
+    clock.mark("expansion_size")
     keep = cfg.keep_structure
     if expand <= cfg.host_compute_limit and not cfg.force_bsr:
         out = spgemm_host(a_sp, b_sp, symmetric, n_partials=expand, keep_structure=keep)
@@ -244,10 +337,136 @@ def _sparse_out_host(a_sp, b_sp, symmetric: bool, esc_limit: int, device):
     if dense_path_fits((m, k), (k, n), (m, n)) and not keep and not sparse_wins:
         return _dense_to_scipy_csr(a_sp, b_sp, symmetric, device)
     if expand <= max(budget, binned_budget):
-        raise _not_ported("The ESC engines (binned, windowed, classic)", "Queue 1 items 4-5")
+        dtype, _ = _upload_dtype(a_sp, b_sp, device)
+        out_cap = bucket_capacity(min(expand, m * n))
+        plan = None
+        if expand <= binned_budget:
+            plan = _binned_plan_for(a_sp, b_sp, expand)
+            clock.mark("binned_plan")
+        if plan is None and expand > budget:
+            return _sparse_out_chunked_esc(a_sp, b_sp, symmetric, esc_limit, device, clock)
+        a = from_scipy(a_sp, dtype=dtype, device=device)
+        b = from_scipy(b_sp, dtype=dtype, device=device)
+        if plan is not None:
+            args = plan.device_args(device)
+            clock.mark("upload")
+            c = spgemm_esc_binned(a, b, *args, window=plan.window, out_capacity=out_cap,
+                                  symmetric=symmetric, dedup_span=plan.max_run)
+            route = "esc_binned"
+        else:
+            clock.mark("upload")
+            wplan = windowed_plan(a_sp.nnz, np.diff(b_sp.indptr)[a_sp.indices], expand)
+            clock.mark("windowed_plan")
+            if wplan is not None:
+                w, tail = wplan
+                c = spgemm_esc_windowed(a, b, window=w, expand_capacity=bucket_capacity(expand),
+                                        tail_capacity=bucket_capacity(tail) if tail else 0,
+                                        out_capacity=out_cap, symmetric=symmetric)
+                route = "esc_windowed"
+            else:
+                c = spgemm_esc(a, b, expand_capacity=bucket_capacity(expand),
+                               out_capacity=out_cap, symmetric=symmetric)
+                route = "esc"
+        clock.mark("engine")
+        out = _to_scipy_f64(c)
+        clock.mark("download")
+        clock.finish(route)
+        return out
+
     if dense_path_fits((k, n)) and not keep:
-        raise _not_ported("The row-chunked dense route (dense_chunks)", "Queue 1 item 3")
-    raise _not_ported("The row-chunked ESC route (esc_chunks)", "Queue 1 items 3-5")
+        out = _sparse_out_chunked_dense(a_sp, b_sp, symmetric, device)
+        _set_route("dense_chunks")
+        return out
+    return _sparse_out_chunked_esc(a_sp, b_sp, symmetric, esc_limit, device, clock)
+
+
+def _chunk_rows_padded(a_sp, start: int, stop: int, rows_pad: int, dtype, device) -> CSRMatrix:
+    """Rows [start, stop) of a scipy CSR as a container of ``rows_pad`` rows
+    (the trailing rows empty), as JAX buckets its chunks' shapes."""
+    sub = a_sp[start:stop]
+    indptr = np.zeros(rows_pad + 1, dtype=np.int32)
+    indptr[: stop - start + 1] = sub.indptr
+    indptr[stop - start + 1:] = sub.indptr[-1]
+    padded = sp.csr_matrix((sub.data, sub.indices, indptr), shape=(rows_pad, a_sp.shape[1]))
+    return from_scipy(padded, dtype=dtype, device=device)
+
+
+def _flop_chunk_bounds(flops: np.ndarray, expand_limit: int, max_rows: int):
+    """Contiguous row-chunk boundaries with ~``expand_limit`` partial products
+    and at most ``max_rows`` rows per chunk.  A row heavier than the limit is
+    a chunk of its own, so the walk always advances."""
+    m = len(flops)
+    csum = np.concatenate([[0.0], np.cumsum(flops, dtype=np.float64)])
+    bounds = [0]
+    while bounds[-1] < m:
+        start = bounds[-1]
+        stop = int(np.searchsorted(csum, csum[start] + expand_limit, "right")) - 1
+        stop = min(max(stop, start + 1), start + max_rows, m)
+        bounds.append(stop)
+    return bounds
+
+
+def _sparse_out_chunked_esc(a_sp, b_sp, symmetric: bool, esc_limit, device, clock):
+    """Flop-balanced row-chunked ESC (route ``"esc_chunks"``): each chunk of
+    ~``esc_limit`` partials goes through the windowed engine (one window plan
+    for the whole operand) or the classic one, B uploaded once; the chunks'
+    CSR pieces are stitched on the host.  Every chunk gets the whole
+    operand's tail as its ``tail_capacity``: the engine computes the exact
+    expansion, so the tail only has to pass its check, and a chunk's tail
+    is never larger than the whole's."""
+    m = a_sp.shape[0]
+    n = b_sp.shape[1]
+    flops = row_flops(a_sp.indptr, a_sp.indices, b_sp.indptr)
+    clock.mark("row_flops")
+    bounds = _flop_chunk_bounds(flops, esc_limit or get_config().esc_expand_limit, m)
+    clock.mark("chunk_bounds")
+    dtype, _ = _upload_dtype(a_sp, b_sp, device)
+    b = from_scipy(b_sp, dtype=dtype, device=device)
+    clock.mark("upload_b")
+    csum = np.concatenate([[0], np.cumsum(flops, dtype=np.int64)])
+    plan = windowed_plan(a_sp.nnz, np.diff(b_sp.indptr)[a_sp.indices], int(csum[-1]))
+    clock.mark("windowed_plan")
+    parts = []
+    for start, stop in zip(bounds[:-1], bounds[1:]):
+        rows_c = stop - start
+        rows_pad = min(bucket_capacity(rows_c, minimum=1), bucket_capacity(m, minimum=1))
+        expand = int(csum[stop] - csum[start])
+        a_chunk = _chunk_rows_padded(a_sp, start, stop, rows_pad, dtype, device)
+        clock.mark("chunk_upload")
+        kw = dict(expand_capacity=bucket_capacity(max(expand, 1)),
+                  out_capacity=bucket_capacity(max(min(expand, rows_pad * n), 1)),
+                  symmetric=symmetric, row_offset=start)
+        if plan is not None:
+            c = spgemm_esc_windowed(a_chunk, b, window=plan[0],
+                                    tail_capacity=bucket_capacity(plan[1]) if plan[1] else 0,
+                                    **kw)
+        else:
+            c = spgemm_esc(a_chunk, b, **kw)
+        clock.mark("engine")
+        parts.append(to_scipy(c)[:rows_c])
+        clock.mark("download")
+    out = stitch_csr(parts, m, n)
+    if out.dtype != np.float64:  # the numpy stitch keeps the pieces' dtype
+        out = out.astype(np.float64)
+    clock.mark("stitch")
+    clock.finish("esc_chunks", chunks=len(bounds) - 1)
+    return out
+
+
+def _sparse_out_chunked_dense(a_sp, b_sp, symmetric: bool, device):
+    """Row-chunked dense route (``"dense_chunks"``): B's (k, n) panel fits but
+    the output does not.  Equal rows per chunk (the dense cost of a chunk is
+    rows * k * n whatever its sparsity); each chunk takes the single-shot
+    dense route, and the symmetric filter runs on the stitched result."""
+    m = a_sp.shape[0]
+    n = b_sp.shape[1]
+    chunk = max(1, min(m, get_config().dense_path_limit // max(n, 1)))
+    parts = [_dense_to_scipy_csr(a_sp[start:min(start + chunk, m)], b_sp, False, device)
+             for start in range(0, m, chunk)]
+    out = stitch_csr(parts, m, n)
+    if out.dtype != np.float64:
+        out = out.astype(np.float64)
+    return csr_triu(out) if symmetric else out
 
 
 def _triple_product_host(a_sp, b_sp, compute_full_matrix: int, device) -> np.ndarray:
@@ -390,9 +609,13 @@ def multiply(
     """Device-resident multiply: containers in, a dense tensor or a padded
     :class:`CSRMatrix` out, all on the operands' device.
 
-    The sparse output takes the dense route with a static ``out_capacity``.
-    The ESC keyword arguments (``plan``, ``expand_capacity``, ``window``,
-    ``tail_capacity``, ``b_table``) select engines that are not ported yet.
+    The sparse output needs a static ``out_capacity``.  With ``plan=``
+    (:func:`.ops.spgemm_binned.binned_plan` of the operands' structure) it
+    runs the binned ESC engine; with ``expand_capacity`` the windowed
+    (``window``, ``tail_capacity``, ``b_table``; size them with
+    :func:`.ops.spgemm_esc.windowed_plan`) or the classic ESC engine, which
+    raise ``ValueError`` on an undersized capacity instead of dropping
+    partials; otherwise the dense route and extraction.
     """
     if output_format == "dense":
         return spgemm_dense_out(a, b, symmetric=symmetric, precision=precision)
@@ -400,7 +623,9 @@ def multiply(
         if out_capacity is None:
             raise ValueError("sparse output requires out_capacity")
         if plan is not None:
-            raise _not_ported("The row-binned ESC engine (multiply(plan=...))", "Queue 1 item 4")
+            return spgemm_esc_binned(a, b, *plan.device_args(a.device), window=plan.window,
+                                     out_capacity=out_capacity, symmetric=symmetric,
+                                     dedup_span=plan.max_run)
         if expand_capacity is None and (window is not None or b_table is not None
                                         or tail_capacity):
             raise ValueError(
@@ -408,9 +633,13 @@ def multiply(
                 "fall through to the dense route (different semantics)"
             )
         if expand_capacity is not None:
-            raise _not_ported(
-                "The ESC engines (multiply(expand_capacity=..., window=...))", "Queue 1 item 5"
-            )
+            if window is not None:
+                return spgemm_esc_windowed(a, b, window=window, expand_capacity=expand_capacity,
+                                           tail_capacity=tail_capacity,
+                                           out_capacity=out_capacity, symmetric=symmetric,
+                                           b_table=b_table)
+            return spgemm_esc(a, b, expand_capacity=expand_capacity, out_capacity=out_capacity,
+                              symmetric=symmetric)
         c = spgemm_dense_out(a, b, symmetric=symmetric, precision=precision)
         return _extract_csr(c, out_capacity, symmetric=symmetric)
     raise ValueError("Invalid output_format. Choose 'sparse' or 'dense'.")

@@ -55,7 +55,12 @@ class Config:
     # Partial-product budgets of the ESC engines; the router compares the
     # expansion against them to decide between ESC and the dense route.
     esc_expand_limit: int = 1 << 22
+    # Row-binned ESC engine (ops/spgemm_binned.py): lane width (slots sorted
+    # together) and slice window of its host plan, and its single-dispatch
+    # budget.  Past ``binned_expand_limit`` the router takes row chunks.
     use_binned_esc: bool = True
+    binned_lane_width: int = 4096
+    binned_window: int = 8
     binned_expand_limit: int = 1 << 25
     # BSR route: block edge of the BSR kernels (K5, K6), and block-sparse
     # operands -- at most this fraction of A's (block_size x block_size)

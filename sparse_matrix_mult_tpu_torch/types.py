@@ -94,6 +94,31 @@ class CSRMatrix:
         out[:nnz] = rid
         return out
 
+    def todense(self, dtype=None) -> torch.Tensor:
+        """Dense ``(rows, cols)`` matrix, duplicate entries summed (plain
+        PyTorch; the routes densify through K3, :func:`.ops.convert.csr_to_dense`)."""
+        dtype = dtype or self.values.dtype
+        nnz = int(self.nnz)
+        out = torch.zeros(self.shape, dtype=dtype, device=self.device)
+        rows = self.row_ids()[:nnz].long()
+        cols = self.indices[:nnz].long()
+        return out.index_put_((rows, cols), self.values[:nnz].to(dtype), accumulate=True)
+
+    def transpose_dense(self) -> torch.Tensor:
+        """Dense transpose."""
+        return self.todense().T
+
+    def with_capacity(self, capacity: int) -> "CSRMatrix":
+        """A copy with another entry capacity: growth zero-pads, a shrink
+        truncates (the caller keeps ``capacity >= nnz``)."""
+        cap = int(capacity)
+        if cap == self.capacity:
+            return self
+        pad = max(cap - self.capacity, 0)
+        indices = torch.nn.functional.pad(self.indices[:cap], (0, pad))
+        values = torch.nn.functional.pad(self.values[:cap], (0, pad))
+        return CSRMatrix(self.indptr, indices, values, self.shape)
+
 
 def from_scipy(mat, dtype=None, capacity: int | None = None, device=None) -> CSRMatrix:
     """Upload a scipy CSR (or anything ``csr_matrix`` accepts) to ``device``.

@@ -18,7 +18,8 @@ from typing import Optional
 
 import numpy as np
 
-__all__ = ["get_native", "expansion_size", "csr_triu", "dense_pack", "spgemm_host"]
+__all__ = ["get_native", "expansion_size", "row_flops", "stitch_csr", "csr_triu", "dense_pack",
+           "spgemm_host"]
 
 _LIB: Optional[ctypes.CDLL] = None
 _TRIED = False
@@ -26,6 +27,7 @@ _TRIED = False
 _I32 = ctypes.POINTER(ctypes.c_int32)
 _F32 = ctypes.POINTER(ctypes.c_float)
 _F64 = ctypes.POINTER(ctypes.c_double)
+_I64 = ctypes.POINTER(ctypes.c_int64)
 _INT64 = ctypes.c_int64
 
 
@@ -50,6 +52,12 @@ def get_native() -> Optional[ctypes.CDLL]:
             lib = ctypes.CDLL(path)
             lib.smm_expansion_size.restype = ctypes.c_int64
             lib.smm_expansion_size.argtypes = [_I32, _INT64, _I32]
+            lib.smm_row_flops.restype = None
+            lib.smm_row_flops.argtypes = [_I32, _I32, _INT64, _I32, _F64]
+            lib.smm_stitch_csr.restype = None
+            lib.smm_stitch_csr.argtypes = [
+                _INT64, _I64, _I32, _I64, _I32, _F64, _I64, _I32, _I32, _F64,
+            ]
             lib.smm_csr_triu.restype = ctypes.c_int64
             lib.smm_csr_triu.argtypes = [_INT64, _I32, _I32, _F64, _I32, _I32, _F64]
             for suffix, fp in (("f32", _F32), ("f64", _F64)):
@@ -90,6 +98,57 @@ def expansion_size(a_indices, a_nnz: int, b_indptr) -> int:
     if lib is not None:
         return int(lib.smm_expansion_size(_ptr(a_indices, _I32), a_nnz, _ptr(b_indptr, _I32)))
     return int((b_indptr[a_indices + 1] - b_indptr[a_indices]).sum())
+
+
+def row_flops(a_indptr, a_indices, b_indptr) -> np.ndarray:
+    """Partial products contributed by each row of A (float64, one per row)."""
+    a_indptr = np.ascontiguousarray(a_indptr, np.int32)
+    a_indices = np.ascontiguousarray(a_indices, np.int32)
+    b_indptr = np.ascontiguousarray(b_indptr, np.int32)
+    rows = len(a_indptr) - 1
+    lib = get_native()
+    if lib is not None:
+        out = np.empty(rows, np.float64)
+        lib.smm_row_flops(_ptr(a_indptr, _I32), _ptr(a_indices, _I32), rows,
+                          _ptr(b_indptr, _I32), _ptr(out, _F64))
+        return out
+    nnz = int(a_indptr[-1])
+    per_entry = b_indptr[a_indices[:nnz] + 1] - b_indptr[a_indices[:nnz]]
+    row_ids = np.repeat(np.arange(rows), np.diff(a_indptr))
+    return np.bincount(row_ids, weights=per_entry, minlength=rows)
+
+
+def stitch_csr(chunks, total_rows: int, ncols: int):
+    """Stitch scipy CSR pieces of consecutive row ranges into one scipy CSR
+    (float64 values from the native library; scipy's ``vstack`` keeps the
+    pieces' dtype when the library is absent)."""
+    import scipy.sparse as sp
+
+    lib = get_native()
+    if lib is None:
+        return sp.vstack(chunks, format="csr")
+    n = len(chunks)
+    chunk_rows = np.array([c.shape[0] for c in chunks], np.int64)
+    indptrs = [np.ascontiguousarray(c.indptr, np.int32) for c in chunks]
+    indptr_offsets = np.concatenate([[0], np.cumsum([len(ip) for ip in indptrs])[:-1]])
+    indptr_offsets = np.ascontiguousarray(indptr_offsets, np.int64)
+    nnzs = np.array([c.nnz for c in chunks], np.int64)
+    entry_offsets = np.ascontiguousarray(np.concatenate([[0], np.cumsum(nnzs)[:-1]]), np.int64)
+    nnz_total = int(nnzs.sum())
+    indptr_cat = np.concatenate(indptrs)
+    indices_cat = np.concatenate(
+        [np.ascontiguousarray(c.indices[:c.nnz], np.int32) for c in chunks])
+    values_cat = np.concatenate(
+        [np.ascontiguousarray(c.data[:c.nnz], np.float64) for c in chunks])
+    out_indptr = np.empty(total_rows + 1, np.int32)
+    out_indices = np.empty(nnz_total, np.int32)
+    out_values = np.empty(nnz_total, np.float64)
+    lib.smm_stitch_csr(
+        n, _ptr(chunk_rows, _I64), _ptr(indptr_cat, _I32), _ptr(indptr_offsets, _I64),
+        _ptr(indices_cat, _I32), _ptr(values_cat, _F64), _ptr(entry_offsets, _I64),
+        _ptr(out_indptr, _I32), _ptr(out_indices, _I32), _ptr(out_values, _F64),
+    )
+    return sp.csr_matrix((out_values, out_indices, out_indptr), shape=(total_rows, ncols))
 
 
 def csr_triu(mat):

@@ -15,6 +15,10 @@ import sparse_matrix_mult_tpu_torch as tsmm
 from sparse_matrix_mult_tpu_torch import api
 
 TOL = dict(rtol=1e-12, atol=1e-12)
+# The JAX package routes by a host/device cost model the port does not have;
+# these settings price its device at nothing (tests/test_large_sparse.py).
+JAX_ON_DEVICE = dict(auto_calibrate_link=False, link_fixed_s=1e-9, link_up_bytes_per_s=1e15,
+                     link_down_bytes_per_s=1e15, host_rate_base=1.0)
 
 
 @pytest.fixture(scope="module")
@@ -151,39 +155,58 @@ def test_empty_operand_and_zero_notice(output_format, capsys):
 
 def test_imem_size_scales_the_esc_budget(config):
     """imem_size rescales the budget the expansion is compared against: with
-    a budget above this problem's expansion the (unported) ESC rung is
-    chosen, below it the dense route."""
+    a budget at this problem's expansion the ESC rung is chosen, below it
+    the dense route; each equals JAX's route and product."""
     a = sp.random(2000, 2000, density=0.01, format="csr", random_state=9)
     b = sp.random(2000, 2000, density=0.01, format="csr", random_state=10)
-    expand = (np.diff(b.indptr)[a.indices]).sum()
-    config(esc_expand_limit=int(expand), use_binned_esc=False)
-    with pytest.raises(NotImplementedError, match="ESC"):
-        tsmm.sparse_matrix_multiply(a, b, imem_size=5, device="cpu")
-    tsmm.sparse_matrix_multiply(a, b, imem_size=4, device="cpu")
-    assert tsmm.get_last_route() == "dense"
+    expand = int((np.diff(b.indptr)[a.indices]).sum())
+    config(esc_expand_limit=expand, use_binned_esc=False)
+    jsmm.set_config(esc_expand_limit=expand, use_binned_esc=False, **JAX_ON_DEVICE)
+    for imem_size, route in ((5, "esc_windowed"), (4, "dense")):
+        got = tsmm.sparse_matrix_multiply(a, b, imem_size=imem_size, device="cpu")
+        assert tsmm.get_last_route() == route
+        want = jsmm.sparse_matrix_multiply(a, b, imem_size=imem_size)
+        assert jsmm.get_last_route() == route
+        _check_sparse(got, want, (a @ b).tocsr())
 
 
 def test_unported_rungs_raise(operands, config):
+    """The sparse-output rungs below the dense route (which raised
+    NotImplementedError until the port carried them), each against JAX's
+    route label and product (JAX pinned off its host cost model)."""
     a, b, _ = operands
+    jsmm.set_config(**JAX_ON_DEVICE)
+
+    def both(x, y, route):
+        got = tsmm.sparse_matrix_multiply(x, y, device="cpu")
+        assert tsmm.get_last_route() == route
+        want = jsmm.sparse_matrix_multiply(x, y)
+        assert jsmm.get_last_route() == route
+        _check_sparse(got, want, (x @ y).tocsr())
+
     # ESC: an expansion above the host limit, within the binned budget and
     # under a quarter of the panel.
     sparse_a = sp.random(2000, 2000, density=0.01, format="csr", random_state=11)
     sparse_b = sp.random(2000, 2000, density=0.01, format="csr", random_state=12)
-    with pytest.raises(NotImplementedError, match="ESC engines"):
-        tsmm.sparse_matrix_multiply(sparse_a, sparse_b, device="cpu")
-    # keep_structure sends every non-host problem to ESC.
+    both(sparse_a, sparse_b, "esc_binned")
+    # keep_structure sends every non-host problem to ESC (on the operands'
+    # leading blocks: JAX takes ~1 s per 10^6 partials on the CPU).
     config(keep_structure=True)
-    with pytest.raises(NotImplementedError, match="ESC engines"):
-        tsmm.sparse_matrix_multiply(a, b, device="cpu")
+    jsmm.set_config(keep_structure=True)
+    both(a[:200, :200], b[:200, :200], "esc_windowed")
     # Row chunks: the operands' panels exceed the dense-path limit.
-    config(keep_structure=False, dense_path_limit=200_000, esc_expand_limit=1000,
-           binned_expand_limit=1000)
+    limits = dict(keep_structure=False, dense_path_limit=200_000, esc_expand_limit=1000,
+                  binned_expand_limit=1000)
+    config(**limits)
+    jsmm.set_config(**limits)
     tall = sp.random(1000, 300, density=0.3, format="csr", random_state=13)
     small = sp.random(300, 300, density=0.3, format="csr", random_state=14)
-    with pytest.raises(NotImplementedError, match="dense_chunks"):
-        tsmm.sparse_matrix_multiply(tall, small, device="cpu")
-    with pytest.raises(NotImplementedError, match="esc_chunks"):
-        tsmm.sparse_matrix_multiply(a, b, device="cpu")
+    both(tall, small, "dense_chunks")
+    limits = dict(dense_path_limit=100_000, esc_expand_limit=100_000)
+    config(**limits)
+    jsmm.set_config(**limits)
+    both(a[:100, :300], b[:300], "esc_chunks")
+    assert api.get_last_route_detail()["chunks"] > 1
 
 
 @pytest.mark.parametrize("output_format", ["sparse", "dense"])
@@ -206,19 +229,30 @@ def test_bsr_route_returns_the_product_on_the_cpu(output_format, config):
 
 
 def test_multiply_esc_keywords_raise():
-    a = tsmm.from_scipy(sp.random(50, 50, density=0.1, random_state=16), device="cpu")
-    with pytest.raises(NotImplementedError, match="binned"):
-        tsmm.multiply(a, a, out_capacity=4096, plan=object())
-    with pytest.raises(NotImplementedError, match="ESC"):
-        tsmm.multiply(a, a, out_capacity=4096, expand_capacity=4096)
-    with pytest.raises(NotImplementedError, match="ESC"):
-        tsmm.multiply(a, a, out_capacity=4096, expand_capacity=4096, window=8)
+    """multiply(plan=...), multiply(expand_capacity=..., window=...) and the
+    classic ESC (which raised NotImplementedError until the port carried
+    them) give JAX's products; the keyword errors that remain raise."""
+    from sparse_matrix_mult_tpu.ops.spgemm_binned import binned_plan as jplan
+    from sparse_matrix_mult_tpu_torch.ops import binned_plan
+
+    a_sp = sp.random(50, 50, density=0.1, format="csr", random_state=16)
+    a, ja = tsmm.from_scipy(a_sp, device="cpu"), jsmm.from_scipy(a_sp)
+    want = jsmm.to_scipy(jsmm.multiply(ja, ja, out_capacity=4096, expand_capacity=4096))
+    plan = binned_plan(a_sp.indptr, a_sp.indices, a_sp.indptr)
+    assert plan is not None
+    for kw in (dict(plan=plan), dict(expand_capacity=4096),
+               dict(expand_capacity=4096, window=8, tail_capacity=1024)):
+        got = tsmm.multiply(a, a, out_capacity=4096, **kw)
+        _check_sparse(tsmm.to_scipy(got), want, (a_sp @ a_sp).tocsr())
+    got = jsmm.multiply(ja, ja, out_capacity=4096,
+                        plan=jplan(a_sp.indptr, a_sp.indices, a_sp.indptr))
+    _check_sparse(jsmm.to_scipy(got), want, want)
     with pytest.raises(ValueError, match="expand_capacity"):
         tsmm.multiply(a, a, out_capacity=4096, window=8)
     with pytest.raises(ValueError, match="expand_capacity"):
         tsmm.multiply(a, a, out_capacity=4096, tail_capacity=1024)
-    with pytest.raises(NotImplementedError, match="ESC"):
-        tsmm.multiply(a, a, out_capacity=4096, expand_capacity=4096, tail_capacity=1024)
+    with pytest.raises(ValueError, match="out_capacity"):
+        tsmm.multiply(a, a, plan=plan)
 
 
 def test_upload_dtype_follows_the_device():

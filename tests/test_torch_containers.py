@@ -83,3 +83,29 @@ def test_from_dense_equals_jax(capacity):
     pc = tsmm.from_dense(torch.from_numpy(a), capacity)
     for field in ("indptr", "indices", "values"):
         np.testing.assert_array_equal(getattr(pc, field).numpy(), np.asarray(getattr(jc, field)))
+
+
+@pytest.mark.parametrize("m,n,d", SHAPES)
+def test_todense_and_transpose_dense_equal_jax(m, n, d):
+    a = sp.random(m, n, density=d, format="csr", random_state=8)
+    c, j = tsmm.from_scipy(a, device="cpu"), jsmm.from_scipy(a)
+    np.testing.assert_array_equal(c.todense().numpy(), np.asarray(j.todense()))
+    np.testing.assert_array_equal(c.transpose_dense().numpy(), np.asarray(j.transpose_dense()))
+    assert c.todense(torch.float32).dtype == torch.float32
+
+
+def test_todense_sums_duplicate_entries():
+    c = tsmm.CSRMatrix.from_numpy([0, 3, 3], [1, 1, 0, 0], [1.0, 2.0, 4.0, 0.0], (2, 2),
+                                  device="cpu")
+    assert c.todense().tolist() == [[4.0, 3.0], [0.0, 0.0]]
+
+
+@pytest.mark.parametrize("capacity", [128, 512, 4096])
+def test_with_capacity_equals_jax(capacity):
+    a = sp.random(40, 50, density=0.1, format="csr", random_state=9)
+    c, j = tsmm.from_scipy(a, device="cpu"), jsmm.from_scipy(a)
+    got, want = c.with_capacity(capacity), j.with_capacity(capacity)
+    assert got.capacity == capacity == want.capacity
+    for field in ("indptr", "indices", "values"):
+        np.testing.assert_array_equal(getattr(got, field).numpy(), np.asarray(getattr(want, field)))
+    assert c.with_capacity(c.capacity) is c

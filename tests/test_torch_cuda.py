@@ -890,3 +890,105 @@ def _raise_plain(name):
     def plain(*args, **kwargs):
         raise AssertionError(f"{name} ran on a CUDA tensor")
     return plain
+
+
+def _esc_operands(seed, m=700, k=500, n=600, da=0.01, db=0.02):
+    a = sp.random(m, k, density=da, format="csr", random_state=seed)
+    b = sp.random(k, n, density=db, format="csr", random_state=seed + 1)
+    a.data = 2 * a.data - 1  # cancellations possible: structure is Gustavson's, not scipy's
+    return a, b
+
+
+def _esc_call(engine, a_sp, b_sp, device, symmetric):
+    """One call of ``engine`` on containers of ``a_sp``, ``b_sp`` (f32) on ``device``."""
+    from sparse_matrix_mult_tpu_torch.ops.spgemm_binned import binned_plan, spgemm_esc_binned
+    from sparse_matrix_mult_tpu_torch.ops.spgemm_esc import (
+        spgemm_esc, spgemm_esc_windowed, windowed_plan)
+
+    a = tsmm.from_scipy(a_sp, dtype=torch.float32, device=device)
+    b = tsmm.from_scipy(b_sp, dtype=torch.float32, device=device)
+    expand = int(np.diff(b_sp.indptr)[a_sp.indices].sum())
+    cap = tsmm.bucket_capacity(expand)
+    kw = dict(out_capacity=cap, symmetric=symmetric, row_offset=11)
+    if engine == "binned":
+        plan = binned_plan(a_sp.indptr, a_sp.indices, b_sp.indptr, lane_width=1024)
+        return lambda: spgemm_esc_binned(a, b, *plan.device_args(device), window=plan.window,
+                                         **kw)
+    if engine == "windowed":
+        window, tail = windowed_plan(a_sp.nnz, np.diff(b_sp.indptr)[a_sp.indices], expand)
+        return lambda: spgemm_esc_windowed(a, b, window=window, expand_capacity=cap,
+                                           tail_capacity=tsmm.bucket_capacity(tail), **kw)
+    return lambda: spgemm_esc(a, b, expand_capacity=cap, **kw)
+
+
+@pytest.mark.parametrize("symmetric", [False, True])
+@pytest.mark.parametrize("engine", ["binned", "windowed", "classic"])
+def test_esc_engines_on_the_card(cuda, engine, symmetric):
+    """Each ESC engine on the card against the same function on the CPU:
+    identical indptr and indices, f32 values within 1e-6 of (|A| |B|), and
+    two calls on the card give the same bits."""
+    a_sp, b_sp = _esc_operands(41)
+    on_card = _esc_call(engine, a_sp, b_sp, cuda, symmetric)
+    got, again = on_card(), on_card()
+    want = _esc_call(engine, a_sp, b_sp, "cpu", symmetric)()
+    nnz = int(want.nnz)
+    assert nnz > 0 and torch.equal(got.indptr.cpu(), want.indptr)
+    assert torch.equal(got.indices.cpu()[:nnz], want.indices[:nnz])
+    for field in ("indptr", "indices", "values"):
+        assert torch.equal(getattr(got, field), getattr(again, field)), field
+    c = tsmm.to_scipy(want)
+    abs_ab = np.asarray((abs(a_sp) @ abs(b_sp)).todense())
+    rows = np.repeat(np.arange(c.shape[0]), np.diff(c.indptr))
+    limit = 1e-6 * abs_ab[rows, c.indices]
+    diff = np.abs(got.values.cpu().numpy()[:nnz].astype(np.float64) - want.values.numpy()[:nnz])
+    assert np.all(diff <= limit)
+
+
+@pytest.mark.parametrize("engine,syncs", [("binned", 0), ("windowed", 1), ("classic", 1)])
+def test_esc_engines_host_syncs(cuda, engine, syncs):
+    """The binned engine makes no host sync; the windowed and classic ones
+    make one (the counts that size the expansion)."""
+    a_sp, b_sp = _esc_operands(43)
+    call = _esc_call(engine, a_sp, b_sp, cuda, False)
+    call()
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            call()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    # The mode's own notice ("... a prototype feature ...") is not a sync.
+    assert sum("called a synchronizing CUDA operation" in str(w.message)
+               for w in caught) == syncs
+
+
+@pytest.mark.parametrize("route,limits", [
+    ("esc_binned", dict()),
+    ("esc_windowed", dict(use_binned_esc=False)),
+    ("esc", dict(use_binned_esc=False, dense_path_limit=1000)),
+    ("esc_chunks", dict(dense_path_limit=1000, esc_expand_limit=4000, binned_expand_limit=4000)),
+    ("dense_chunks", dict(dense_path_limit=150_000, esc_expand_limit=8, binned_expand_limit=8)),
+])
+def test_sparse_output_ladder_on_the_card(cuda, route, limits):
+    """Each rung through sparse_matrix_multiply on the card: the route, and
+    identical structure with values in the oracle against scipy (non-negative
+    operands: no cancellation)."""
+    a = sp.random(400, 300, density=0.01, format="csr", random_state=51)
+    b = sp.random(300, 400, density=0.02 if route != "esc" else 0.4, format="csr",
+                  random_state=52)
+    saved = tsmm.get_config()
+    tsmm.set_config(host_compute_limit=0, **limits)
+    try:
+        for symmetric in (False, True):
+            got = tsmm.sparse_matrix_multiply(a, b, symmetric=symmetric, device="cuda")
+            assert tsmm.get_last_route() == route
+            ref = (a @ b).tocsr()
+            ref = sp.triu(ref, format="csr") if symmetric else ref
+            ref.sort_indices()
+            assert np.array_equal(got.indptr, ref.indptr)
+            assert np.array_equal(got.indices, ref.indices)
+            assert np.allclose(got.data, ref.data, rtol=1e-5, atol=1e-8)
+    finally:
+        tsmm.set_config(saved)

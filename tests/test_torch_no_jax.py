@@ -19,6 +19,9 @@ def test_import_leaves_jax_unloaded():
         "import sparse_matrix_mult_tpu_torch.ops.kernels.bsr_spgemm\n"
         "import sparse_matrix_mult_tpu_torch.ops.triple_product\n"
         "import sparse_matrix_mult_tpu_torch.models.inversion\n"
+        "import sparse_matrix_mult_tpu_torch.ops.spgemm_esc\n"
+        "import sparse_matrix_mult_tpu_torch.ops.spgemm_binned\n"
+        "import sparse_matrix_mult_tpu_torch.utils.testing\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'sparse_matrix_mult_tpu' or m.startswith('sparse_matrix_mult_tpu.'))\n"
         "assert not bad, bad\n"
@@ -56,3 +59,10 @@ def test_no_module_imports_jax(path):
         for name in names:
             top = name.split(".")[0]
             assert top not in ("jax", "jaxlib", "sparse_matrix_mult_tpu"), (path, name)
+
+
+def test_the_scan_covers_the_sparse_output_modules():
+    scanned = {os.path.relpath(p, ROOT) for p in _port_modules()}
+    for module in ("ops/spgemm_esc.py", "ops/spgemm_binned.py", "utils/testing.py",
+                   "utils/native.py", "api.py"):
+        assert os.path.join("sparse_matrix_mult_tpu_torch", module) in scanned, module
