@@ -121,10 +121,35 @@ Phases, one line each:
                 and two yardsticks the port never calls: cuSPARSE SpGEMM
                 (torch.sparse.mm of the CSR tensors) and the host OpenMP
                 kernel spgemm_host.  Then one JSON line {"esc": ...}.
+ 15-19. dist-* -- the multi-device layer (parallel/, io.py) on a row mesh
+                of DIST_SLOTS = 4 slots, all on the one card (the ring hands
+                blocks between slots; no bytes cross between cards), each
+                window counted: 15. dist-dense -- the dense ring and the CSR
+                ring (balance "rows" and "flops") at the 10k^2 d=0.1
+                symmetric headline, K3 on each slot's A panel and B block
+                and K4 on each slot's C panel, each result slot by slot
+                against the f64 oracle (the CSR ones also through
+                to_scipy()), no slot densifying more than its own rows, and
+                K3 and K4 bit for bit against their plain versions at every
+                slot's shape; 16. dist-sparse -- the sparse ring at
+                1,000,000^2, nnz 1e7 per operand (balance "flops"), against
+                spgemm_host and the single-device multiply (identical
+                structure), and request (a)'s pair on 3 slots (an odd
+                ring); 17. dist-triple -- the dense triple product at the
+                inversion's H and Q (compute_full_matrix 0 and 1) and the
+                sparse one at H 20,000 x 1,000,000 (200 per row) with Q the
+                1M^2 operand, each slot against an f64 oracle, the sparse
+                one twice with the same bits; 18. dist-io -- save_partitioned
+                of the 1M^2 operand, load_sharded_operand feeding the sparse
+                ring: the in-memory run's bits; 19. dist-timing -- each
+                request end to end by stages (planning, ingest, ring,
+                download), warm, min of 3, the ring's peak device memory,
+                and the single-device port on the same products.  Then one
+                JSON line {"dist": ...}.
 
-Then a JSON line of the kernels (launches summed over the seven counted paths;
+Then a JSON line of the kernels (launches summed over the eleven counted paths;
 K2, K3 and K4 also by shape: each product or operand of a counted request is
-held against the plain version in phase 3 or 7, and its launches counted).  A kernel's "ms" is its whole call on an idle stream, the
+held against the plain version in phase 3, 7, 15 or 17, and its launches counted).  A kernel's "ms" is its whole call on an idle stream, the
 wrapper's host work included; K2-K7 add "device_ms", the same call with a
 spin kernel queued before it, which leaves the device's time alone, and K2,
 K4, K6 and K7 "kernels_us", its device time by kernel.  Then
@@ -138,6 +163,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -146,6 +172,7 @@ import torch
 
 import sparse_matrix_mult_tpu_torch as smt
 from sparse_matrix_mult_tpu_torch import api
+from sparse_matrix_mult_tpu_torch import io as smt_io
 from sparse_matrix_mult_tpu_torch.ops.convert import csr_to_dense
 from sparse_matrix_mult_tpu_torch.ops.dense_path import _split3_within_oracle, spgemm_dense_out
 from sparse_matrix_mult_tpu_torch.ops.kernels import LAUNCHES, _build, reset_launches
@@ -156,6 +183,8 @@ from sparse_matrix_mult_tpu_torch.ops.matmul import full_fp32
 from sparse_matrix_mult_tpu_torch.ops.spgemm_binned import spgemm_esc_binned
 from sparse_matrix_mult_tpu_torch.ops.spgemm_esc import windowed_plan
 from sparse_matrix_mult_tpu_torch.models.inversion import invert, posterior_covariance
+from sparse_matrix_mult_tpu_torch.parallel import distributed as td
+from sparse_matrix_mult_tpu_torch.parallel.mesh import row_mesh
 from sparse_matrix_mult_tpu_torch.types_bsr import _tobsr_padded
 from sparse_matrix_mult_tpu_torch.utils.native import (
     expansion_size, spgemm_host)
@@ -538,12 +567,12 @@ def kernel_device_us(fn, runs: int = 3) -> dict:
     return out
 
 
-def compare_extract(c: torch.Tensor, triu: bool):
-    """Kernel K2/K4 against the plain version on one matrix: both times, the
-    nnz and the largest difference of the values, the call's device time
-    alone and by kernel."""
+def compare_extract(c: torch.Tensor, triu: bool, cap: int | None = None):
+    """Kernel K2/K4 against the plain version on one matrix at capacity
+    ``cap`` (default: the bucketed nnz): both times, the nnz and the largest
+    difference of the values, the call's device time alone and by kernel."""
     nnz = int(torch.count_nonzero(torch.triu(c) if triu else c))
-    cap = smt.bucket_capacity(nnz)
+    cap = cap or smt.bucket_capacity(nnz)
     got = ck.dense_to_csr(c, cap, triu=triu)
     ref = ck.dense_to_csr_plain(c, cap, triu=triu)
     for g, r, field in zip(got, ref, ("indptr", "indices", "values")):
@@ -555,7 +584,8 @@ def compare_extract(c: torch.Tensor, triu: bool):
     lib = event_ms(lambda: (torch.triu(c) if triu else c).to_sparse_csr())
     m, n = c.shape
     read = m * (m + 1) // 2 if triu else m * n  # K2 reads the upper triangle only
-    return dict(shape=[m, n], ms=ms, plain_ms=plain_ms, nnz=nnz, max_abs_err=err, library_ms=lib,
+    return dict(shape=[m, n], ms=ms, plain_ms=plain_ms, nnz=nnz, capacity=cap, max_abs_err=err,
+                library_ms=lib,
                 device_ms=event_ms(lambda: ck.dense_to_csr(c, cap, triu=triu), queued=True),
                 kernels_us=kernel_device_us(lambda: ck.dense_to_csr(c, cap, triu=triu)),
                 **roofline(read * c.element_size() + csr_bytes(m, cap, c.element_size())))
@@ -682,10 +712,11 @@ def k6_gemm_alone(ap, bp, a, b, bounds, tables, mask, c, work):
     into ``c``, on run bounds already checked: what the wrapper launches
     last.  ``work``: its block counter, two zero int32 words (each launch
     leaves them zero).  For timing only; it counts no launch."""
-    code = _build.load().smm_bsr_bsr_matmul_dense_bf16(
+    code = _build.launch(
+        "smm_bsr_bsr_matmul_dense_bf16", c.device,
         bounds.data_ptr(), tables[0].data_ptr(), tables[1].data_ptr(), mask.data_ptr(),
         ap.data_ptr(), bp.data_ptr(), c.data_ptr(), work.data_ptr(), a.nbr, b.nbc,
-        a.block_capacity, b.block_capacity, c.shape[0], c.shape[1], _build.stream_ptr(c.device))
+        a.block_capacity, b.block_capacity, c.shape[0], c.shape[1])
     _build.check(code, "bsr_bsr_matmul_dense")
 
 
@@ -852,24 +883,34 @@ def uniform_bu():
 
 
 def k3_at(mat_sp) -> dict:
-    """K3 on one operand the counted paths densify: bit for bit against its
-    plain version and K8, and its, K8's, the plain version's and the library
-    call's times beside its bound (the CSR read once, the dense written once)."""
+    """K3 on one operand the counted paths densify (:func:`k3_csr`)."""
     x = smt.from_scipy(mat_sp, dtype=torch.float32, device=DEVICE)
-    csr = (x.indptr, x.indices, x.values, x.shape)
+    return k3_csr((x.indptr, x.indices, x.values, x.shape))
+
+
+def k3_same(csr) -> None:
+    """K3 bit for bit against its plain version and K8 on one padded CSR."""
     got = ck.csr_to_dense(*csr)
-    require(torch.equal(got, ck.csr_to_dense_plain(*csr)), f"K3 {x.shape} differs from plain")
-    require(torch.equal(got, ck.csr_to_dense_fused(*csr)), f"K3 {x.shape} differs from K8")
-    del got
-    m, n = x.shape
-    return dict(shape=[m, n], nnz=mat_sp.nnz, max_abs_err=0.0,
+    require(torch.equal(got, ck.csr_to_dense_plain(*csr)), f"K3 {csr[3]} differs from plain")
+    require(torch.equal(got, ck.csr_to_dense_fused(*csr)), f"K3 {csr[3]} differs from K8")
+
+
+def k3_csr(csr) -> dict:
+    """K3 on one padded CSR (indptr, indices, values, shape): bit for bit
+    against its plain version and K8, and its, K8's, the plain version's and
+    the library call's times beside its bound (the CSR read once, the dense
+    written once)."""
+    k3_same(csr)
+    m, n = csr[3]
+    nnz = int(csr[0][-1])
+    return dict(shape=[m, n], nnz=nnz, max_abs_err=0.0,
                 ms=event_ms(lambda: ck.csr_to_dense(*csr)),
                 k8_ms=event_ms(lambda: ck.csr_to_dense_fused(*csr)),
                 device_ms=event_ms(lambda: ck.csr_to_dense(*csr), queued=True),
                 k8_device_ms=event_ms(lambda: ck.csr_to_dense_fused(*csr), queued=True),
                 plain_ms=event_ms(lambda: ck.csr_to_dense_plain(*csr)),
                 library_ms=event_ms(lambda: sparse_csr(*csr).to_dense()),
-                **roofline(csr_bytes(m, mat_sp.nnz) + 4 * m * n))
+                **roofline(csr_bytes(m, nnz) + csr[2].element_size() * m * n))
 
 
 def check_bsr_result(label, got, oracle, bound) -> float:
@@ -1516,6 +1557,468 @@ def esc_timing_phase(ops: dict, kept: dict, name: str, smi: str) -> dict:
     return esc
 
 
+# ---------------------------------------------------------------------------
+# Phases 15-19: the multi-device layer (parallel/, io.py) on one card: a row
+# mesh of DIST_SLOTS slots, all on the card (the machine has one), so the
+# ring hands blocks between slots and moves no bytes between cards.
+# ---------------------------------------------------------------------------
+
+DIST_SLOTS, DIST_ODD_SLOTS = 4, 3
+# The sparse triple product's H: 20,000 x 1,000,000 with 200 entries per row
+# (Q the 1,000,000^2 operand of the sparse ring): a 5,000 x 20,000 C panel
+# per slot.
+DIST_H_ROWS, DIST_H_PER_ROW, DIST_H_SEED = 20_000, 200, 41
+
+
+def csr_f64(mat) -> torch.Tensor:
+    """The f64 torch.sparse CSR tensor of a scipy CSR, on the card."""
+    return torch.sparse_csr_tensor(*(torch.from_numpy(x).to(DEVICE) for x in (
+        mat.indptr.astype(np.int64), mat.indices.astype(np.int64), mat.data.astype(np.float64))),
+        size=mat.shape)
+
+
+def dist_mesh(slots: int = DIST_SLOTS):
+    return row_mesh([DEVICE] * slots)
+
+
+def per_row(m: int, k: int, per: int, seed: int):
+    """(m, k) CSR with ``per`` entries per row in uniformly random columns
+    (a repeated column sums), values in [0, 1)."""
+    rng = np.random.default_rng(seed)
+    return sp.coo_matrix((rng.uniform(size=m * per),
+                          (np.repeat(np.arange(m), per), rng.integers(0, k, m * per))),
+                         shape=(m, k)).tocsr()
+
+
+def k3_slots(sharded, rows: int, cols: int) -> dict:
+    """K3 on every slot's block of ``sharded``, densified as the rings do
+    ((rows, cols)): bit for bit against its plain version and K8 at each
+    slot, slot 0's block timed by :func:`k3_csr`."""
+    csrs = [(ip[: rows + 1], ix, vv, (rows, cols)) for ip, ix, vv in
+            sharded.local_shards().values()]
+    for csr in csrs[1:]:
+        k3_same(csr)
+    return dict(slots=len(csrs), **k3_csr(csrs[0]))
+
+
+def k4_slots(panels: list, cap: int) -> dict:
+    """K4 on every slot's C panel at the ring's capacity, bit for bit against
+    its plain version; slot 0's timed by :func:`compare_extract`."""
+    for s, c in enumerate(panels[1:], 1):
+        for g, r, field in zip(ck.dense_to_csr(c, cap), ck.dense_to_csr_plain(c, cap),
+                               ("indptr", "indices", "values")):
+            require(torch.equal(g, r), f"K4 slot {s} {tuple(c.shape)}: {field} differs from plain")
+    return dict(slots=len(panels), **compare_extract(panels[0], triu=False, cap=cap))
+
+
+def panel_close(what: str, panel: torch.Tensor, ref: torch.Tensor) -> float:
+    """A slot's dense panel against its rows of the f64 oracle (on the
+    card): the same nonzero structure, values within the oracle; returns
+    the largest |difference|."""
+    require(tuple(panel.shape) == tuple(ref.shape), f"{what}: shape {tuple(panel.shape)}")
+    got = panel.double()
+    require(torch.equal(got != 0, ref != 0), f"{what}: structure differs from the oracle")
+    require(torch.allclose(got, ref, rtol=RTOL, atol=ATOL), f"{what}: outside the oracle")
+    return float((got - ref).abs().max()) if got.numel() else 0.0
+
+
+def slot_panels_close(label: str, panels: dict, bounds, want: torch.Tensor) -> float:
+    """:func:`panel_close` of every slot's panel against its rows of ``want``."""
+    return max(panel_close(f"{label} slot {s}", p, want[bounds[s]:bounds[s + 1]])
+               for s, p in panels.items())
+
+
+def slot_csr_dense(out) -> dict:
+    """Each slot's CSR block of a ShardedCSR densified by K3's plain version
+    (outside any counted window), trimmed to the slot's own rows."""
+    bounds, n = out.row_bounds, out.shape[1]
+    return {s: ck.csr_to_dense_plain(ip[: bounds[s + 1] - bounds[s] + 1], ix, vv,
+                                     (bounds[s + 1] - bounds[s], n))
+            for s, (ip, ix, vv) in out.local_shards().items()}
+
+
+class densified_shapes:
+    """The shape of every panel the rings densify inside a ``with`` block
+    (a wrapper around the K3 entry point of parallel/distributed.py)."""
+
+    def __enter__(self):
+        self.shapes, self.real = [], td.csr_to_dense
+
+        def spy(a, dtype=None):
+            out = self.real(a, dtype=dtype)
+            self.shapes.append(tuple(out.shape))
+            return out
+
+        td.csr_to_dense = spy
+        return self.shapes
+
+    def __exit__(self, *exc):
+        td.csr_to_dense = self.real
+
+
+def only_kernels(label: str, counts: dict, allowed: dict) -> None:
+    """A request launched exactly ``allowed`` of each kernel and no other."""
+    for key in KERNELS:
+        require(counts[key] == allowed.get(key, 0), f"{label}: {counts[key]} "
+                f"{KERNELS[key][0]} launches, not {allowed.get(key, 0)}")
+
+
+def dist_dense_phase(a_sp, b_sp) -> dict:
+    """Phase 15: the dense and CSR rings at the headline (10k^2, d = 0.1,
+    symmetric) on DIST_SLOTS slots, counted (K3 on each slot's A panel and
+    B block, K4 on each slot's C panel); each result against the f64 oracle
+    slot by slot, the CSR ones also after to_scipy(); no slot densifies more
+    than its own rows; K3 and K4 at the slots' shapes against their plain
+    versions."""
+    t0 = time.perf_counter()
+    mesh = dist_mesh()
+    flop_bounds = td.flop_shard_bounds(a_sp, b_sp, DIST_SLOTS)
+    pa, pb = td.shard_csr(a_sp, mesh), td.shard_csr(b_sp, mesh)
+    pa_f = td.shard_csr(a_sp, mesh, bounds=flop_bounds)
+    lab_a, lab_b = f"dist_a_panel_{pa.rows_pad}x{N}", f"dist_b_block_{pb.rows_pad}x{N}"
+    lab_af = f"dist_a_panel_flops_{pa_f.rows_pad}x{N}"
+    lab_c, lab_cf = f"dist_c_panel_{pa.rows_pad}x{N}", f"dist_c_panel_flops_{pa_f.rows_pad}x{N}"
+    labels = ("dist_dense_symmetric_10k", "dist_csr_symmetric_rows_10k",
+              "dist_csr_symmetric_flops_10k")
+    results = {}
+    reset_launches()
+    with densified_shapes() as shapes:
+        per_call, seconds = counted([
+            (labels[0], lambda _: td.spgemm_dense_distributed(a_sp, b_sp, symmetric=True,
+                                                              mesh=mesh)),
+            (labels[1], lambda _: td.spgemm_csr_distributed(a_sp, b_sp, symmetric=True,
+                                                            mesh=mesh)),
+            (labels[2], lambda _: td.spgemm_csr_distributed(a_sp, b_sp, symmetric=True,
+                                                            mesh=mesh, balance="flops")),
+        ], results)
+    launches = dict(LAUNCHES)
+    k3_map = {labels[0]: (lab_a, lab_b) * DIST_SLOTS, labels[1]: (lab_a, lab_b) * DIST_SLOTS,
+              labels[2]: (lab_af, lab_b) * DIST_SLOTS}
+    k4_map = {labels[1]: (lab_c,) * DIST_SLOTS, labels[2]: (lab_cf,) * DIST_SLOTS}
+    for label in labels:
+        only_kernels(label, per_call[label], {"csr_to_dense": 2 * DIST_SLOTS,
+                                              "dense_to_csr": len(k4_map.get(label, ()))})
+    require(len(shapes) == 6 * DIST_SLOTS and max(r for r, _ in shapes) < N,
+            f"a slot densified a full operand: panel shapes {sorted(set(shapes))}")
+    require(results[labels[2]].row_bounds == flop_bounds, "flop bounds differ")
+
+    c64 = torch.triu(torch.matmul(csr_on_card(a_sp), csr_on_card(b_sp)))
+    nnz64 = int(torch.count_nonzero(c64))
+    errs = {labels[0]: slot_panels_close(labels[0], results[labels[0]].local_shards(),
+                                         results[labels[0]].bounds, c64)}
+    for label in labels[1:]:
+        out = results.pop(label)
+        errs[label] = slot_panels_close(label, slot_csr_dense(out), out.row_bounds, c64)
+        got = out.to_scipy()
+        require(got.shape == (N, N) and got.nnz == nnz64, f"{label}: to_scipy() nnz {got.nnz} "
+                f"!= the oracle's {nnz64}")
+        del out, got
+    del c64, results
+
+    k3 = {lab_a: k3_slots(pa, pa.rows_pad, N), lab_b: k3_slots(pb, pb.rows_pad, N),
+          lab_af: k3_slots(pa_f, pa_f.rows_pad, N)}
+    k4 = {}
+    for lab, a in ((lab_c, pa), (lab_cf, pa_f)):
+        panels = td._dense_panels(mesh, a, pb)
+        for s in range(DIST_SLOTS):
+            panels[s].triu_(a.row_bounds[s])
+        k4[lab] = k4_slots(panels, a.rows_pad * N)
+        del panels
+    del pa, pb, pa_f
+    phase("dist-dense", t0, f"{DIST_SLOTS} slots on {DEVICE}, {N}^2 d={DENSITY} symmetric: "
+          + " | ".join(f"{label}: max abs err {errs[label]:.3e} vs f64 oracle (structure "
+                       f"equal), first call {seconds[label]:.3f} s" for label in labels)
+          + f" | flop bounds {flop_bounds} | panel shapes densified {sorted(set(shapes))} | "
+          + " | ".join(f"K3 {lab}: {timing(r)}, K8 {r['k8_ms']:.3f}, device alone "
+                       f"{r['device_ms']:.3f}" for lab, r in k3.items())
+          + " | " + " | ".join(f"K4 {lab} (nnz {r['nnz']}, capacity {r['capacity']}): "
+                               f"{timing(r)}, device alone {r['device_ms']:.3f}"
+                               for lab, r in k4.items())
+          + f" | K3 and K4 bit for bit against plain at every slot | launches by request "
+          f"{per_call} | launches {launches}")
+    return dict(per_call=per_call, launches=launches, k3_map=k3_map, k4_map=k4_map,
+                k3_shapes=k3, k4_shapes=k4, errs=errs, seconds=seconds)
+
+
+def dist_sparse_plan(a_sp, b_sp, slots: int) -> dict:
+    """The host planning of spgemm_csr_distributed_sparse for scipy
+    operands: flop-balanced bounds and the three capacities."""
+    bounds = td.flop_shard_bounds(a_sp, b_sp, slots)
+    e_max, tot_max = td._expand_step_capacity(a_sp, b_sp.indptr, b_sp.shape[0], bounds, slots)
+    e_step = fine_capacity(e_max)
+    return dict(bounds=bounds, caps=dict(
+        expand_step_capacity=e_step,
+        shard_capacity=smt.bucket_capacity(min(tot_max, a_sp.shape[0] * b_sp.shape[1])),
+        partials_capacity=fine_capacity(tot_max) + e_step))
+
+
+def dist_sparse_phase(hyper, esc_pair) -> dict:
+    """Phase 16: the sparse-local-contraction ring, counted: the 1M^2
+    product (nnz 1e7 per operand, balance="flops") on DIST_SLOTS slots and
+    request (a)'s 200,000^2 pair on DIST_ODD_SLOTS (an odd ring); no hand
+    kernel runs.  Each against spgemm_host's f64 product (identical
+    structure, values in the oracle), the 1M^2 one also against the
+    single-device port's multiply (identical structure)."""
+    t0 = time.perf_counter()
+    a_sp, b_sp = hyper
+    labels = ("dist_sparse_flops_1M", f"dist_sparse_{DIST_ODD_SLOTS}_slots_200k")
+    mesh, mesh_odd = dist_mesh(), dist_mesh(DIST_ODD_SLOTS)
+    results = {}
+    reset_launches()
+    per_call, seconds = counted([
+        (labels[0], lambda _: td.spgemm_csr_distributed_sparse(a_sp, b_sp, mesh=mesh,
+                                                               balance="flops")),
+        (labels[1], lambda _: td.spgemm_csr_distributed_sparse(*esc_pair, mesh=mesh_odd,
+                                                               balance="flops")),
+    ], results)
+    launches = dict(LAUNCHES)
+    for label in labels:
+        only_kernels(label, per_call[label], {})
+    plan = dist_sparse_plan(a_sp, b_sp, DIST_SLOTS)
+    out = results[labels[0]]
+    require(out.row_bounds == plan["bounds"] and out.shard_capacity ==
+            plan["caps"]["shard_capacity"], f"{labels[0]}: bounds or capacity differ from the plan")
+    got = out.to_scipy()
+    host = spgemm_host(a_sp, b_sp)
+    errs = {labels[0]: same_csr(got, host, f"{labels[0]} against spgemm_host")}
+    del host
+    m, n = a_sp.shape[0], b_sp.shape[1]
+    expand = expansion_size(a_sp.indices, a_sp.nnz, b_sp.indptr)
+    a = smt.from_scipy(a_sp, dtype=torch.float32, device=DEVICE)
+    b = smt.from_scipy(b_sp, dtype=torch.float32, device=DEVICE)
+    single = api._to_scipy_f64(smt.multiply(a, b, out_capacity=smt.bucket_capacity(
+        min(expand, m * n)), expand_capacity=smt.bucket_capacity(expand)))
+    del a, b
+    require(np.array_equal(single.indptr, got.indptr) and np.array_equal(single.indices,
+                                                                          got.indices),
+            f"{labels[0]}: structure differs from the single-device multiply")
+    nnz = got.nnz
+    del single, got
+    odd = results.pop(labels[1])
+    errs[labels[1]] = same_csr(odd.to_scipy(), spgemm_host(*esc_pair),
+                               f"{labels[1]} against spgemm_host")
+    del odd
+    phase("dist-sparse", t0, " | ".join(
+        [f"{labels[0]}: {DIST_SLOTS} slots, {expand} partials, nnz(C) {nnz}, bounds "
+         f"{plan['bounds']}, capacities {plan['caps']}, max abs err {errs[labels[0]]:.2e} vs "
+         f"spgemm_host (structure equal; equal to the single-device multiply's), first call "
+         f"{seconds[labels[0]]:.3f} s",
+         f"{labels[1]}: {DIST_ODD_SLOTS} slots, max abs err {errs[labels[1]]:.2e} vs "
+         f"spgemm_host (structure equal), first call {seconds[labels[1]]:.3f} s",
+         f"launches by request {per_call}", f"launches {launches}"]))
+    return dict(per_call=per_call, launches=launches, kept=out, plan=plan, errs=errs,
+                seconds=seconds)
+
+
+def dist_triple_phase(q_sparse) -> dict:
+    """Phase 17: both distributed triple products, counted: the dense ring
+    at the inversion's H (4,096 x 16,384) and Q, compute_full_matrix 0 and
+    1 (K3 on each slot's H panel and Q block), and the sparse one at H
+    20,000 x 1,000,000 (200 per row) with Q the 1M^2 operand (no hand
+    kernel), each slot against an f64 oracle; the sparse one twice, the
+    same bits."""
+    t0 = time.perf_counter()
+    mesh = dist_mesh()
+    h_sp, q_sp = inversion_problem()[:2]
+    hs_sp = per_row(DIST_H_ROWS, HYPER_N, DIST_H_PER_ROW, DIST_H_SEED)
+    labels = tuple(f"dist_triple_{INV_OBS}x{INV_STATE}_full{cfm}" for cfm in (0, 1)) + (
+        f"dist_triple_sparse_{DIST_H_ROWS}x{HYPER_N}",)
+    results = {}
+    reset_launches()
+    per_call, seconds = counted(
+        [(labels[cfm], lambda _, cfm=cfm: td.triple_product_distributed(h_sp, q_sp, cfm,
+                                                                         mesh=mesh))
+         for cfm in (0, 1)]
+        + [(labels[2], lambda _: td.triple_product_distributed_sparse(hs_sp, q_sparse, 0,
+                                                                      mesh=mesh))], results)
+    launches = dict(LAUNCHES)
+    ph, pq = td.shard_csr(h_sp, mesh), td.shard_csr(q_sp, mesh)
+    lab_h, lab_q = f"dist_h_panel_{ph.rows_pad}x{INV_STATE}", f"dist_q_block_{pq.rows_pad}x{INV_STATE}"
+    k3_map = {labels[0]: (lab_h, lab_q) * DIST_SLOTS, labels[1]: (lab_h, lab_q) * DIST_SLOTS}
+    for label in labels:
+        only_kernels(label, per_call[label], {"csr_to_dense": len(k3_map.get(label, ()))})
+    c64, _ = triple_oracle(h_sp, q_sp)
+    errs = {}
+    for cfm, label in enumerate(labels[:2]):
+        out = results.pop(label)
+        errs[label] = slot_panels_close(label, out.local_shards(), out.bounds,
+                                        mirror(c64) if cfm else torch.triu(c64))
+    del c64
+    out = results.pop(labels[2])
+    again = td.triple_product_distributed_sparse(hs_sp, q_sparse, 0, mesh=mesh)
+    require(all(torch.equal(p, again.panels[s]) for s, p in out.local_shards().items()),
+            f"{labels[2]}: a repeated call gave other bits")
+    del again
+    # The oracle: f64 cuSPARSE products on the card (a check the port never calls).
+    up = torch.triu(torch.sparse.mm(torch.sparse.mm(csr_f64(hs_sp), csr_f64(q_sparse)),
+                                    csr_f64(hs_sp.T.tocsr())).to_dense())
+    errs[labels[2]] = slot_panels_close(labels[2], out.local_shards(), out.bounds, up)
+    del out, up
+    k3 = {lab_h: k3_slots(ph, ph.rows_pad, INV_STATE), lab_q: k3_slots(pq, pq.rows_pad, INV_STATE)}
+    del ph, pq
+    phase("dist-triple", t0, " | ".join(
+        [f"{label}: max abs err {errs[label]:.3e} vs f64 oracle (structure equal), first call "
+         f"{seconds[label]:.3f} s" for label in labels]
+        + [f"{labels[2]} twice: the same bits"]
+        + [f"K3 {lab}: {timing(r)}, K8 {r['k8_ms']:.3f}, device alone {r['device_ms']:.3f}"
+           for lab, r in k3.items()]
+        + [f"launches by request {per_call}", f"launches {launches}"]))
+    return dict(per_call=per_call, launches=launches, k3_map=k3_map, k3_shapes=k3, errs=errs,
+                seconds=seconds, h_sparse=hs_sp, inversion=(h_sp, q_sp))
+
+
+def dist_io_phase(hyper, kept, plan) -> dict:
+    """Phase 18: save_partitioned of the 1M^2 operand A (flop-balanced for
+    B) into a temporary directory, then, counted, load_sharded_operand onto
+    DIST_SLOTS slots feeding the sparse ring with the in-memory run's
+    capacities: the same bits as the in-memory run (phase 16).  Also the
+    ingest timed, warm, min of PATH_RUNS."""
+    t0 = time.perf_counter()
+    a_sp, b_sp = hyper
+    mesh = dist_mesh()
+    label = "dist_io_sparse_1M"
+    with tempfile.TemporaryDirectory() as tmp:
+        prefix = os.path.join(tmp, "a")
+        t = time.perf_counter()
+        smt_io.save_partitioned(prefix, a_sp, DIST_SLOTS, b_indptr=b_sp.indptr)
+        save_s = time.perf_counter() - t
+        results = {}
+        reset_launches()
+        per_call, seconds = counted([(label, lambda _: td.spgemm_csr_distributed_sparse(
+            smt_io.load_sharded_operand(prefix, mesh), b_sp, mesh=mesh, **plan["caps"]))],
+            results)
+        launches = dict(LAUNCHES)
+        only_kernels(label, per_call[label], {})
+        out = results.pop(label)
+        require(out.row_bounds == kept.row_bounds, f"{label}: bounds differ from the in-memory run")
+        for s, arrays in out.local_shards().items():
+            for g, w, field in zip(arrays, kept.local_shards()[s], ("indptr", "indices", "values")):
+                require(torch.equal(g, w), f"{label} slot {s}: {field} differs from the "
+                        "in-memory run")
+        del out
+        ingest_s = wall_s(lambda: smt_io.load_sharded_operand(prefix, mesh))
+    phase("dist-io", t0, f"{label}: save_partitioned {save_s:.3f} s ({DIST_SLOTS} files), "
+          f"load_sharded_operand {ingest_s:.4f} s (warm, min of {PATH_RUNS}); the sparse ring "
+          f"on it gives the in-memory run's bits, first call {seconds[label]:.3f} s | launches "
+          f"by request {per_call} | launches {launches}")
+    return dict(per_call=per_call, launches=launches, save_s=save_s, ingest_s=ingest_s)
+
+
+def staged(stages, runs: int = PATH_RUNS) -> dict:
+    """The stages ((name, fn(ctx)) pairs) in order, runs + 1 times (the
+    first warms): the host-clock seconds of each between synchronisations,
+    of the fastest run; its end to end is their sum.  The "ring" stage's
+    peak device memory above what was allocated before it is kept too."""
+    best = None
+    for run in range(runs + 1):
+        ctx, times = {}, {}
+        for key, fn in stages:
+            torch.cuda.synchronize()
+            if key == "ring":
+                before = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+            t = time.perf_counter()
+            fn(ctx)
+            torch.cuda.synchronize()
+            times[key] = time.perf_counter() - t
+            if key == "ring":
+                ring_peak = torch.cuda.max_memory_allocated() - before
+        total = sum(times.values())
+        if run and (best is None or total < best["seconds"]):
+            best = dict(seconds=total, stages=times, ring_peak_bytes=ring_peak)
+        del ctx
+    return best
+
+
+def dist_timing_phase(a_sp, b_sp, hyper, triple, name: str, smi: str) -> dict:
+    """Phase 19: each request end to end by stages (staged(): planning,
+    ingest, ring, download), warm, min of PATH_RUNS, with the ring's peak
+    device memory; and the same products through the single-device port
+    (sparse_matrix_multiply, scipy in and out) for scale."""
+    t0 = time.perf_counter()
+    mesh = dist_mesh()
+    ha_sp, hb_sp = hyper
+    h_sp, q_sp = triple["inversion"]
+    hs_sp = triple["h_sparse"]
+
+    def ingest(a, b, bounds=None):
+        return lambda c: c.update(a=td.shard_csr(a, mesh, bounds=c.get("bounds", bounds)),
+                                  b=td.shard_csr(b, mesh))
+
+    def plan_sparse(c):
+        c.update(dist_sparse_plan(ha_sp, hb_sp, DIST_SLOTS))
+
+    requests = {
+        "dist_dense_symmetric_10k": [
+            ("ingest", ingest(a_sp, b_sp)),
+            ("ring", lambda c: c.update(out=td.spgemm_dense_distributed(
+                c["a"], c["b"], symmetric=True, mesh=mesh))),
+            ("download", lambda c: np.asarray(c["out"]))],
+        "dist_csr_symmetric_rows_10k": [
+            ("ingest", ingest(a_sp, b_sp)),
+            ("ring", lambda c: c.update(out=td.spgemm_csr_distributed(
+                c["a"], c["b"], symmetric=True, mesh=mesh))),
+            ("download", lambda c: c["out"].to_scipy())],
+        "dist_csr_symmetric_flops_10k": [
+            ("planning", lambda c: c.update(bounds=td.flop_shard_bounds(a_sp, b_sp,
+                                                                         DIST_SLOTS))),
+            ("ingest", ingest(a_sp, b_sp)),
+            ("ring", lambda c: c.update(out=td.spgemm_csr_distributed(
+                c["a"], c["b"], symmetric=True, mesh=mesh))),
+            ("download", lambda c: c["out"].to_scipy())],
+        "dist_sparse_flops_1M": [
+            ("planning", plan_sparse),
+            ("ingest", ingest(ha_sp, hb_sp)),
+            ("ring", lambda c: c.update(out=td.spgemm_csr_distributed_sparse(
+                c["a"], c["b"], mesh=mesh, **c["caps"]))),
+            ("download", lambda c: c["out"].to_scipy())],
+        f"dist_triple_{INV_OBS}x{INV_STATE}_full0": [
+            ("ring", lambda c: c.update(out=td.triple_product_distributed(h_sp, q_sp, 0,
+                                                                          mesh=mesh))),
+            ("download", lambda c: np.asarray(c["out"]))],
+        f"dist_triple_sparse_{DIST_H_ROWS}x{HYPER_N}": [
+            ("ring", lambda c: c.update(out=td.triple_product_distributed_sparse(
+                hs_sp, ha_sp, 0, mesh=mesh))),
+            ("download", lambda c: np.asarray(c["out"]))],
+    }
+    timings = {label: staged(stages) for label, stages in requests.items()}
+    single = {"sparse_matrix_multiply_symmetric_10k": wall_s(
+                  lambda: smt.sparse_matrix_multiply(a_sp, b_sp, symmetric=True)),
+              "sparse_matrix_multiply_1M": wall_s(lambda: smt.sparse_matrix_multiply(*hyper))}
+    single_route = smt.get_last_route()
+    phase("dist-timing", t0, f"{name} [{smi}]: {DIST_SLOTS} slots on one card, host clock, "
+          f"warm, min of {PATH_RUNS}: " + " | ".join(
+              f"{label} end to end {r['seconds']:.4f} s (" + ", ".join(
+                  f"{k} {v:.4f}" for k, v in r["stages"].items())
+              + f"), ring peak {r['ring_peak_bytes'] / 2**30:.2f} GiB"
+              for label, r in timings.items())
+          + " | single-device port, scipy in and out: " + ", ".join(
+              f"{label} {s:.4f} s" for label, s in single.items())
+          + f" (the 1M^2 one on route {single_route!r})")
+    return dict(card=name, nvidia_smi=smi, slots=DIST_SLOTS, requests=timings,
+                single_device_s=single, single_device_route_1M=single_route)
+
+
+def dist_phases(a_sp, b_sp, esc_pair, name: str, smi: str) -> dict:
+    """Phases 15-19; what the kernels line needs of them."""
+    dense = dist_dense_phase(a_sp, b_sp)
+    hyper = hyper_pair(HYPER_N, HYPER_N, HYPER_N, HYPER_NNZ, HYPER_NNZ, HYPER_SEEDS)
+    sparse = dist_sparse_phase(hyper, esc_pair)
+    triple = dist_triple_phase(hyper[0])
+    io = dist_io_phase(hyper, sparse.pop("kept"), sparse["plan"])
+    timings = dist_timing_phase(a_sp, b_sp, hyper, triple, name, smi)
+    parts = (dense, sparse, triple, io)
+    return dict(
+        per_call={k: v for part in parts for k, v in part["per_call"].items()},
+        launches=[part["launches"] for part in parts],
+        k3_map={**dense["k3_map"], **triple["k3_map"]}, k4_map=dense["k4_map"],
+        k3_shapes={**dense["k3_shapes"], **triple["k3_shapes"]}, k4_shapes=dense["k4_shapes"],
+        summary=dict(timing=timings, sparse_plan=sparse["plan"],
+                     max_abs_err={**dense["errs"], **sparse["errs"], **triple["errs"]},
+                     first_call_s={**dense["seconds"], **sparse["seconds"], **triple["seconds"]},
+                     io=dict(save_s=io["save_s"], ingest_s=io["ingest_s"])))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -1937,23 +2440,33 @@ def main() -> int:
     ops = esc_operands()
     esc_per_request, launches_esc, kept = esc_main_phase(ops)
     esc = esc_timing_phase(ops, kept, name, smi)
+    esc_pair = ops["esc"]
     del ops, kept
+
+    # 15-19. the multi-device layer on a mesh of DIST_SLOTS slots of the card
+    dist = dist_phases(a_sp, b_sp, esc_pair, name, smi)
+    del esc_pair
+    report["csr_to_dense"]["shapes"].update(dist["k3_shapes"])
+    report["dense_to_csr"]["shapes"].update(dist["k4_shapes"])
+    k3_by_request = {**k3_operands(), **dist["k3_map"]}
+    extracted_by_request = extract_operands()
+    extracted_by_request["dense_to_csr"].update(dist["k4_map"])
 
     kernels = []
     by_request = {**per_request, **fast_per_request, **bsr_per_request, **fused_per_call,
-                  **triple_per_request, **inv_per_request, **esc_per_request}
+                  **triple_per_request, **inv_per_request, **esc_per_request, **dist["per_call"]}
     path_launches = (launches_main, launches_fast, launches_bsr, launches_fused, launches_triple,
-                     launches_inv, launches_esc)
+                     launches_inv, launches_esc, *dist["launches"])
     k3_shapes = report["csr_to_dense"]["shapes"]
     for shape in k3_shapes.values():
         shape["launches"] = 0
     for label, counts in by_request.items():
-        densified = k3_operands().get(label, ())
+        densified = k3_by_request.get(label, ())
         require(counts["csr_to_dense"] == len(densified),
                 f"{label}: {counts['csr_to_dense']} K3 launches, not one for each of {densified}")
         for operand in densified:
             k3_shapes[operand]["launches"] += 1
-    for key, by_label in extract_operands().items():
+    for key, by_label in extracted_by_request.items():
         shapes = report[key]["shapes"]
         for shape in shapes.values():
             shape["launches"] = 0
@@ -1976,6 +2489,7 @@ def main() -> int:
                                  "pieces_rel_err", "split3_rel_err") if k in r},
         })
     print(json.dumps({"esc": esc}))
+    print(json.dumps({"dist": dist["summary"]}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -77,6 +77,12 @@ class Config:
     keep_structure: bool = False
     # Print the reference's "Multiplication resulted in a zero matrix." notice.
     zero_result_notice: bool = True
+    # Axis name of a row mesh (parallel/mesh.py).
+    mesh_axis: str = "rows"
+    # Per-slot dense working-set budget of the distributed layer: past it the
+    # densifying rings hand host operands to the sparse local contraction
+    # (parallel/distributed.py).
+    dense_shard_budget_bytes: int = 4 << 30
 
     def replace(self, **kw) -> "Config":
         return dataclasses.replace(self, **kw)

@@ -25,7 +25,7 @@ import threading
 
 import torch
 
-__all__ = ["load", "check", "stream_ptr", "is_cuda", "LAUNCHES", "reset_launches"]
+__all__ = ["load", "check", "launch", "stream_ptr", "is_cuda", "LAUNCHES", "reset_launches"]
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 SRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -163,6 +163,15 @@ def check(code: int, name: str) -> None:
 
 def stream_ptr(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def launch(name: str, device: torch.device, *args) -> int:
+    """Call the C entry point ``name`` with ``args`` and ``device``'s current
+    stream, ``device`` made current for the call: the runtime launches a
+    kernel on the current device (and the C side keys its per-device set-up
+    on it), whatever device the stream and pointers belong to."""
+    with torch.cuda.device(device):
+        return getattr(load(), name)(*args, stream_ptr(device))
 
 
 def is_cuda(*tensors: torch.Tensor) -> bool:

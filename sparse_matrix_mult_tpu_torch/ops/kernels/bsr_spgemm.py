@@ -206,9 +206,10 @@ def bsr_matmul_dense_pieces(ap: torch.Tensor, bp: torch.Tensor, a: BSRMatrix,
     c = torch.empty((m, n), dtype=torch.float32, device=ap.device)
     if m == 0 or n == 0:
         return c
-    code = _build.load().smm_bsr_matmul_dense_bf16(
+    code = _build.launch(
+        "smm_bsr_matmul_dense_bf16", ap.device,
         a.indptr.data_ptr(), a.indices.data_ptr(), ap.data_ptr(), bp.data_ptr(), c.data_ptr(),
-        a.nbr, a.block_capacity, m, n, bp.shape[1], bp.shape[2], _build.stream_ptr(ap.device),
+        a.nbr, a.block_capacity, m, n, bp.shape[1], bp.shape[2],
     )
     _build.LAUNCHES["bsr_matmul_dense"] += 1
     _build.check(code, "bsr_matmul_dense")
@@ -302,10 +303,10 @@ def _pair_runs(a: BSRMatrix, b: BSRMatrix, pa, pb, ci, cj):
            for t in (pa, pb, ci, cj)):
         raise ValueError("bsr_pair_runs takes contiguous int32 vectors of one length")
     bounds, state = _run_state(a, b, pa.device)
-    code = _build.load().smm_bsr_pair_runs(
+    code = _build.launch(
+        "smm_bsr_pair_runs", pa.device,
         pa.data_ptr(), pb.data_ptr(), ci.data_ptr(), cj.data_ptr(), pa.shape[0], a.block_capacity,
         b.block_capacity, a.nbr, b.nbc, bounds.data_ptr(), state.data_ptr(),
-        _build.stream_ptr(pa.device),
     )
     _build.LAUNCHES["bsr_pair_runs"] += 1
     _build.check(code, "bsr_pair_runs")
@@ -380,10 +381,11 @@ def bsr_bsr_matmul_dense_pieces(ap: torch.Tensor, bp: torch.Tensor, a: BSRMatrix
     if m and n:
         # Safe on tables the flag refuses (csrc/bsr_spgemm.cu): launched before
         # the flag is read, so the device runs the call's kernels back to back.
-        code = _build.load().smm_bsr_bsr_matmul_dense_bf16(
+        code = _build.launch(
+            "smm_bsr_bsr_matmul_dense_bf16", c.device,
             bounds.data_ptr(), pa.data_ptr(), pb.data_ptr(), mask.data_ptr(), ap.data_ptr(),
             bp.data_ptr(), c.data_ptr(), state[1:].data_ptr(), a.nbr, b.nbc, a.block_capacity,
-            b.block_capacity, m, n, _build.stream_ptr(c.device),
+            b.block_capacity, m, n,
         )
         _build.LAUNCHES["bsr_bsr_matmul_dense"] += 1
         _build.check(code, "bsr_bsr_matmul_dense")
@@ -421,11 +423,11 @@ def bsr_bsr_matmul_dense(a: BSRMatrix, b: BSRMatrix, pa, pb, ci, cj, first, mask
     bp = torch.empty((3, bsz, cap_b * bsz), dtype=torch.bfloat16, device=dev)
     bounds, state = _run_state(a, b, dev)
     c = torch.empty((m, n), dtype=torch.float32, device=dev)
-    code = _build.load().smm_bsr_bsr_matmul_dense_f32(
+    code = _build.launch(
+        "smm_bsr_bsr_matmul_dense_f32", dev,
         a.blocks.data_ptr(), b.blocks.data_ptr(), ap.data_ptr(), bp.data_ptr(), pa.data_ptr(),
         pb.data_ptr(), ci.data_ptr(), cj.data_ptr(), pa.shape[0], mask.data_ptr(),
         bounds.data_ptr(), state.data_ptr(), c.data_ptr(), a.nbr, b.nbc, cap_a, cap_b, m, n,
-        _build.stream_ptr(dev),
     )
     _build.LAUNCHES["split_bf16"] += 2
     _build.LAUNCHES["bsr_pair_runs"] += 1

@@ -130,9 +130,10 @@ def csr_to_dense(indptr, indices, values, shape) -> torch.Tensor:
         return dense
     tile_elems, per_cta, ctas = _densify_tiling(m, n, values.element_size(),
                                                 _sm_count(values.device))
-    code = getattr(_build.load(), f"smm_csr_to_dense_{_FLOATS[values.dtype]}")(
+    code = _build.launch(
+        f"smm_csr_to_dense_{_FLOATS[values.dtype]}", values.device,
         indptr.data_ptr(), indices.data_ptr(), values.data_ptr(), dense.data_ptr(),
-        m, n, tile_elems, per_cta, ctas, _build.stream_ptr(values.device),
+        m, n, tile_elems, per_cta, ctas,
     )
     _build.LAUNCHES["csr_to_dense"] += 1
     _build.check(code, "csr_to_dense")
@@ -181,17 +182,15 @@ def dense_to_csr(c: torch.Tensor, capacity: int, triu: bool = False):
         raise ValueError(f"capacity must lie in [0, 2^31), got {capacity}")
     (m, n), dev, kind = c.shape, c.device, _FLOATS[c.dtype]
     name = "dense_to_csr_triu" if triu else "dense_to_csr"
-    lib, stream = _build.load(), _build.stream_ptr(dev)
     # Count and scan first; the entries are allocated while they run.
     indptr = torch.empty(m + 1, dtype=torch.int32, device=dev)
-    code = getattr(lib, f"smm_dense_count_{kind}")(c.data_ptr(), m, n, int(triu), capacity,
-                                                   indptr.data_ptr(), stream)
+    code = _build.launch(f"smm_dense_count_{kind}", dev, c.data_ptr(), m, n, int(triu), capacity,
+                         indptr.data_ptr())
     _build.check(code, name)
     indices = torch.empty(capacity, dtype=torch.int32, device=dev)
     values = torch.empty(capacity, dtype=c.dtype, device=dev)
-    code = getattr(lib, f"smm_dense_fill_{kind}")(c.data_ptr(), m, n, int(triu), capacity,
-                                                  indptr.data_ptr(), indices.data_ptr(),
-                                                  values.data_ptr(), stream)
+    code = _build.launch(f"smm_dense_fill_{kind}", dev, c.data_ptr(), m, n, int(triu), capacity,
+                         indptr.data_ptr(), indices.data_ptr(), values.data_ptr())
     _build.LAUNCHES[name] += 1
     _build.check(code, name)
     return indptr, indices, values
@@ -265,10 +264,11 @@ def dense_to_csr_fused(c: torch.Tensor, capacity: int, lane: int = LANE):
     tiling = _extract_tiling(m, n, size, c.data_ptr() % 16, _sm_count(c.device))
     # One status word per tile, then the ticket counter: zeroed in the C call.
     status = torch.empty(tiling.n_tiles + 1, dtype=torch.int64, device=c.device)
-    code = getattr(_build.load(), f"smm_dense_to_csr_fused_{_FLOATS[c.dtype]}")(
+    code = _build.launch(
+        f"smm_dense_to_csr_fused_{_FLOATS[c.dtype]}", c.device,
         c.data_ptr() - tiling.lead * size, tiling.lead, m, n, capacity, tiling.tile_bytes,
         tiling.stages, tiling.ctas, status.data_ptr(), indptr.data_ptr(), indices.data_ptr(),
-        values.data_ptr(), _build.stream_ptr(c.device),
+        values.data_ptr(),
     )
     _build.LAUNCHES["dense_to_csr_fused"] += 1
     _build.check(code, "dense_to_csr_fused")
@@ -295,9 +295,9 @@ def csr_to_dense_fused(indptr, indices, values, shape, lane: int = LANE) -> torc
     dense = torch.empty((m, n), dtype=values.dtype, device=values.device)
     if m * n == 0:
         return dense
-    code = getattr(_build.load(), f"smm_csr_to_dense_fused_{_FLOATS[values.dtype]}")(
-        indptr.data_ptr(), indices.data_ptr(), values.data_ptr(), dense.data_ptr(),
-        m, n, lane, _build.stream_ptr(values.device),
+    code = _build.launch(
+        f"smm_csr_to_dense_fused_{_FLOATS[values.dtype]}", values.device,
+        indptr.data_ptr(), indices.data_ptr(), values.data_ptr(), dense.data_ptr(), m, n, lane,
     )
     _build.LAUNCHES["csr_to_dense_fused"] += 1
     _build.check(code, "csr_to_dense_fused")

@@ -86,9 +86,9 @@ def split_bf16(x: torch.Tensor, pieces: int, transpose: bool = False,
     if not x.is_contiguous():
         raise ValueError("split_bf16 takes a contiguous matrix")
     out = torch.empty((pieces, _pad(rows, TILE), k_pad), dtype=torch.bfloat16, device=x.device)
-    code = _build.load().smm_split_bf16(
-        x.data_ptr(), out.data_ptr(), rows, k, out.shape[1], out.shape[2], pieces,
-        int(transpose), _build.stream_ptr(x.device),
+    code = _build.launch(
+        "smm_split_bf16", x.device,
+        x.data_ptr(), out.data_ptr(), rows, k, out.shape[1], out.shape[2], pieces, int(transpose),
     )
     _build.LAUNCHES["split_bf16"] += 1
     _build.check(code, "split_bf16")
@@ -162,9 +162,10 @@ def matmul_triu_pieces(ap: torch.Tensor, bp: torch.Tensor, m: int, n: int) -> to
     if not (ap.is_contiguous() and bp.is_contiguous()):
         raise ValueError("matmul_triu_pieces takes contiguous pieces")
     c = torch.empty((m, n), dtype=torch.float32, device=ap.device)
-    code = _build.load().smm_matmul_triu_bf16(
+    code = _build.launch(
+        "smm_matmul_triu_bf16", ap.device,
         ap.data_ptr(), bp.data_ptr(), c.data_ptr(), m, n, ap.shape[1], bp.shape[1], ap.shape[2],
-        ap.shape[0], _build.stream_ptr(ap.device),
+        ap.shape[0],
     )
     _build.LAUNCHES["matmul_triu"] += 1
     _build.check(code, "matmul_triu")

@@ -109,7 +109,9 @@ def _expand(a: CSRMatrix, b_start, b_len, b: CSRMatrix, *, symmetric: bool, row_
 def _compress(key_sorted, v_sorted, n_rows: int, n_cols: int, out_capacity: int):
     """Packed CSR of sorted partials: runs of equal keys summed in order.
     Keys at or above ``n_rows * n_cols`` are dead and carry the value 0, so
-    the run before them may absorb them without changing its sum."""
+    the run before them may absorb them without changing its sum; the last
+    run ends at the last live key, so that it does not absorb the dead tail
+    (one thread sums a run: a tail of millions cost ~0.2 s on an H100)."""
     dev = key_sorted.device
     E = key_sorted.shape[0]
     oc = int(out_capacity)
@@ -119,8 +121,10 @@ def _compress(key_sorted, v_sorted, n_rows: int, n_cols: int, out_capacity: int)
     boundary[1:] &= key_sorted[1:] != key_sorted[:-1]
     runs = torch.cumsum(boundary, 0)
     n_runs = runs[-1]
-    # offsets[r]: where run r starts; every run past the last ends the data.
-    offsets = torch.searchsorted(runs, torch.arange(1, oc + 2, device=dev))
+    end = torch.where(live, torch.arange(1, E + 1, device=dev), 0).max()
+    # offsets[r]: where run r starts; every run past the last starts and ends
+    # at ``end``.
+    offsets = torch.searchsorted(runs, torch.arange(1, oc + 2, device=dev)).clamp_max_(end)
     # Data of two dimensions takes segment_reduce's one-thread-per-run kernel;
     # 1-D data takes a segmented reduction with one CTA per run, which cost
     # ~1 ns a run on an H100, most of the engine's time.

@@ -992,3 +992,132 @@ def test_sparse_output_ladder_on_the_card(cuda, route, limits):
             assert np.allclose(got.data, ref.data, rtol=1e-5, atol=1e-8)
     finally:
         tsmm.set_config(saved)
+
+
+# ---------------------------------------------------------------------------
+# The multi-device layer: a 4-slot mesh on one card against a 4-slot CPU
+# mesh (f32 on the card, f64 on the CPU: held to the reference oracle).
+# ---------------------------------------------------------------------------
+
+
+def _slot_meshes(cuda):
+    from sparse_matrix_mult_tpu_torch.parallel.mesh import row_mesh
+
+    return row_mesh([cuda] * 4), row_mesh(["cpu"] * 4)
+
+
+def _close_dense(got, want):
+    got, want = np.asarray(got), np.asarray(want)
+    assert got.shape == want.shape
+    assert np.allclose(got, want, rtol=1e-5, atol=1e-8)
+
+
+def _close_csr(got, want):
+    """Identical structure (non-negative operands: nothing cancels), values
+    in the oracle."""
+    got, want = got.to_scipy(), want.to_scipy()
+    assert np.array_equal(got.indptr, want.indptr)
+    assert np.array_equal(got.indices, want.indices)
+    assert np.allclose(got.data, want.data, rtol=1e-5, atol=1e-8)
+
+
+@pytest.mark.parametrize("ring", ["dense", "dense_symmetric", "csr", "csr_symmetric_flops",
+                                  "sparse", "sparse_symmetric", "triple", "triple_full",
+                                  "triple_sparse", "triple_sparse_full", "ring_matmul"])
+def test_rings_on_a_slot_mesh_of_one_card(cuda, ring):
+    from sparse_matrix_mult_tpu_torch.parallel import distributed as td
+
+    gpu, cpu = _slot_meshes(cuda)
+    a = sp.random(300, 300, density=0.05, format="csr", random_state=61)
+    b = sp.random(300, 300, density=0.05, format="csr", random_state=62)
+    h = sp.random(90, 300, density=0.05, format="csr", random_state=63)
+    runs = {
+        "dense": lambda m: td.spgemm_dense_distributed(a, b, mesh=m),
+        "dense_symmetric": lambda m: td.spgemm_dense_distributed(a, b, symmetric=True, mesh=m),
+        "csr": lambda m: td.spgemm_csr_distributed(a, b, mesh=m),
+        "csr_symmetric_flops": lambda m: td.spgemm_csr_distributed(a, b, symmetric=True, mesh=m,
+                                                                    balance="flops"),
+        "sparse": lambda m: td.spgemm_csr_distributed_sparse(a, b, mesh=m),
+        "sparse_symmetric": lambda m: td.spgemm_csr_distributed_sparse(a, b, symmetric=True,
+                                                                       mesh=m),
+        "triple": lambda m: td.triple_product_distributed(h, b, 0, mesh=m),
+        "triple_full": lambda m: td.triple_product_distributed(h, b, 1, mesh=m),
+        "triple_sparse": lambda m: td.triple_product_distributed_sparse(h, b, 0, mesh=m),
+        "triple_sparse_full": lambda m: td.triple_product_distributed_sparse(h, b, 1, mesh=m),
+        "ring_matmul": lambda m: td.ring_matmul(torch.from_numpy(a.toarray()),
+                                                torch.from_numpy(b.toarray()[:, :77]), m),
+    }
+    before = dict(LAUNCHES)
+    got = runs[ring](gpu)
+    torch.cuda.synchronize()
+    launched = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
+    want = runs[ring](cpu)
+    if isinstance(got, td.ShardedCSR):
+        assert all(t.device.type == "cuda" for t in got.values)
+        _close_csr(got, want)
+    else:
+        assert all(p.device.type == "cuda" for p in got.panels)
+        _close_dense(got, want)
+    densifies = ring in ("dense", "dense_symmetric", "csr", "csr_symmetric_flops", "triple",
+                         "triple_full")
+    assert launched["csr_to_dense"] == (8 if densifies else 0)  # A's panel, B's block per slot
+    assert launched["dense_to_csr"] == (4 if ring.startswith("csr") else 0)
+    if ring == "triple_sparse":  # deterministic: the same bits twice
+        again = runs[ring](gpu)
+        assert all(torch.equal(p, again.panels[s]) for s, p in got.local_shards().items())
+
+
+def test_k3_k4_at_slot_shapes(cuda):
+    """K3 on every slot's A panel and B block, K4 on its C panel, bit for
+    bit against their plain versions."""
+    from sparse_matrix_mult_tpu_torch.parallel import distributed as td
+
+    gpu, _ = _slot_meshes(cuda)
+    a = sp.random(1000, 700, density=0.05, format="csr", random_state=64)
+    b = sp.random(700, 900, density=0.05, format="csr", random_state=65)
+    sa, sb = td.shard_csr(a, gpu), td.shard_csr(b, gpu)
+    for s in range(4):
+        for x, rows, cols in ((sa, sa.rows_pad, 700), (sb, sb.rows_pad, 900)):
+            csr = (x.indptrs[s], x.indices[s], x.values[s], (rows, cols))
+            assert torch.equal(ck.csr_to_dense(*csr), ck.csr_to_dense_plain(*csr))
+    panels = td._dense_panels(gpu, sa, sb)
+    for panel in panels:
+        got = ck.dense_to_csr(panel, sa.rows_pad * 900)
+        for g, w in zip(got, ck.dense_to_csr_plain(panel, sa.rows_pad * 900)):
+            assert torch.equal(g, w)
+
+
+def test_row_mesh_takes_every_card(cuda):
+    from sparse_matrix_mult_tpu_torch.parallel.mesh import row_mesh
+
+    mesh = row_mesh()
+    assert mesh.devices == tuple(torch.device("cuda", i) for i in range(torch.cuda.device_count()))
+
+
+def test_kernels_on_a_card_that_is_not_current(cuda):
+    """Every wrapper makes its tensors' card current for the launch: K3, K8,
+    K4, K2, K7 and K1 on cuda:1 while cuda:0 is current, against their
+    plain versions (the runtime launches on the current card; before the
+    wrappers set it, a 4-card mesh read another card's memory)."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two NVIDIA GPUs")
+    torch.cuda.set_device(0)
+    card = torch.device("cuda", 1)
+    a = tsmm.from_scipy(sp.random(300, 257, density=0.1, format="csr", random_state=71),
+                        dtype=torch.float32, device=card)
+    csr = (a.indptr, a.indices, a.values, a.shape)
+    dense = ck.csr_to_dense(*csr)
+    assert torch.equal(dense, ck.csr_to_dense_plain(*csr))
+    assert torch.equal(ck.csr_to_dense_fused(*csr), dense)
+    want = ck.dense_to_csr_plain(dense, 8192)
+    for got in (ck.dense_to_csr(dense, 8192), ck.dense_to_csr_fused(dense, 8192)):
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+    sq = dense[:257]
+    assert all(torch.equal(g, w) for g, w in zip(ck.dense_to_csr(sq, 8192, triu=True),
+                                                 ck.dense_to_csr_plain(sq, 8192, triu=True)))
+    got = torch.triu(tm.matmul_triu(sq, sq))
+    with full_fp32():
+        unit = torch.triu(torch.matmul(sq.abs(), sq.abs()))
+    assert bool(((got - torch.triu(tm.matmul_triu_plain(sq, sq))).abs() <= 1e-5 * unit).all())
+    torch.cuda.synchronize(card)
+    assert torch.cuda.current_device() == 0
