@@ -146,6 +146,23 @@ Phases, one line each:
                 download), warm, min of 3, the ring's peak device memory,
                 and the single-device port on the same products.  Then one
                 JSON line {"dist": ...}.
+ 20. cost-model -- the router's host/device cost model (api._route_costs)
+                re-fitted on this host and link: the calibrated link terms
+                beside a directly timed 200 MiB pageable download and upload;
+                spgemm_host partials/s at reuse ~1, ~10 and ~100 and the
+                least-squares host_rate_base of the sqrt(reuse) model;
+                dense_pack's rate on the 12,288^2 panel; then [cost-sweep],
+                one line per request (five sparse, two dense, two triple):
+                the model's estimates and pick, the host route, the device
+                route and the model's route, warm, min of 3, whether the
+                pick was the faster, each result against scipy at the
+                oracle, K1-K4 launched over the sweep; then (demo)
+                examples/demo_torch.py on the card, every line [ok].  The
+                counted requests of phases 4, 8, 11 and 13 print the model's
+                est_host/est_dev; one the model would send to the host is
+                pinned on its device route (ON_DEVICE) and named.  The link
+                is calibrated once before phase 4, so no first-call time
+                includes it.  Then one JSON line {"cost_model": ...}.
 
 Then a JSON line of the kernels (launches summed over the eleven counted paths;
 K2, K3 and K4 also by shape: each product or operand of a counted request is
@@ -187,7 +204,7 @@ from sparse_matrix_mult_tpu_torch.parallel import distributed as td
 from sparse_matrix_mult_tpu_torch.parallel.mesh import row_mesh
 from sparse_matrix_mult_tpu_torch.types_bsr import _tobsr_padded
 from sparse_matrix_mult_tpu_torch.utils.native import (
-    expansion_size, spgemm_host)
+    dense_pack, expansion_size, spgemm_host)
 from sparse_matrix_mult_tpu_torch.utils.testing import hypersparse_random
 from sparse_matrix_mult_tpu_torch.utils.transfer import (
     fetch_dense_to_csr, fetch_np, fine_capacity)
@@ -940,9 +957,64 @@ def counted(calls, results):
     return per_call, seconds
 
 
-def request(a_sp, b_sp, **kw):
-    """A call for :func:`counted`: sparse_matrix_multiply and its route."""
-    return lambda _: (smt.sparse_matrix_multiply(a_sp, b_sp, **kw), smt.get_last_route())
+# The cost model priced off (the port's tests do the same): every request past
+# host_compute_limit keeps its device route.
+ON_DEVICE = dict(auto_calibrate_link=False, link_fixed_s=1e-9, link_up_bytes_per_s=1e15,
+                 link_down_bytes_per_s=1e15, host_rate_base=1.0)
+# (est_host, est_dev) of each counted request, by label, and the labels whose
+# device route had to be pinned because the cost model would take the host.
+MODEL_ESTIMATES, MODEL_PINNED = {}, []
+
+
+def model_costs(a_sp, b_sp, output_format="sparse", use_triple_product=False, **_):
+    """(est_host, est_dev) seconds the router's cost model gives a request
+    (api._route_costs with the branch's expansion and download)."""
+    a_sp, b_sp = api._coerce_csr(a_sp), api._coerce_csr(b_sp)
+    expand = expansion_size(a_sp.indices, a_sp.nnz, b_sp.indptr)
+    val_bytes = api._value_bytes(a_sp, b_sp, DEVICE)
+    if use_triple_product:
+        return api._route_costs(2 * expand, a_sp, b_sp, DEVICE,
+                                out_bytes=val_bytes * a_sp.shape[0] ** 2)
+    out_bytes = val_bytes * a_sp.shape[0] * b_sp.shape[1] if output_format == "dense" else None
+    return api._route_costs(expand, a_sp, b_sp, DEVICE, out_bytes)
+
+
+def model_pin(label, a_sp, b_sp, **kw) -> dict:
+    """Record the cost model's estimates of a counted request; the config
+    that keeps it on its device route: ON_DEVICE where the model would take
+    the host (the phase's line names it), else nothing."""
+    MODEL_ESTIMATES[label] = model_costs(a_sp, b_sp, **kw)
+    if MODEL_ESTIMATES[label][0] < MODEL_ESTIMATES[label][1]:
+        MODEL_PINNED.append(label)
+        return ON_DEVICE
+    return {}
+
+
+def pinned_like(label) -> dict:
+    """The pin of counted request ``label`` (:func:`model_pin`), for another
+    call on its operands."""
+    return ON_DEVICE if label in MODEL_PINNED else {}
+
+
+def model_note(labels) -> str:
+    """The cost model's verdict on the counted requests ``labels``, for a phase line."""
+    ratios = {label: round(MODEL_ESTIMATES[label][0] / MODEL_ESTIMATES[label][1], 2)
+              for label in labels}
+    pinned = [label for label in labels if label in MODEL_PINNED]
+    return (f"cost model est_host/est_dev {ratios}: "
+            + (f"model pinned on the device for {pinned}" if pinned
+               else "every request on the device by the model"))
+
+
+def request(label, a_sp, b_sp, **kw):
+    """A call for :func:`counted`: sparse_matrix_multiply and its route,
+    the cost model pinned where it would take the host (:func:`model_pin`)."""
+    pin = model_pin(label, a_sp, b_sp, **kw)
+
+    def call(_):
+        with config_set(**pin):
+            return smt.sparse_matrix_multiply(a_sp, b_sp, **kw), smt.get_last_route()
+    return call
 
 
 def split_answers(answers: dict):
@@ -1139,7 +1211,7 @@ def triple_phase(h_sp, q_sp, name: str, smi: str):
     answers = {}
     reset_launches()
     per_call, seconds = counted(
-        [(label, request(h_sp, q_sp, use_triple_product=True, compute_full_matrix=cfm))
+        [(label, request(label, h_sp, q_sp, use_triple_product=True, compute_full_matrix=cfm))
          for cfm, label in enumerate(labels)], answers)
     launches = dict(LAUNCHES)
     results, routes = split_answers(answers)
@@ -1170,7 +1242,7 @@ def triple_phase(h_sp, q_sp, name: str, smi: str):
     phase("triple", t0, " | ".join(
         [f"{label}: max abs err {e[0]:.3e}, max rel err {e[1]:.3e} vs f64 oracle, "
          f"first call {seconds[label]:.3f} s" for label, e in errs.items()]
-        + [f"launches by request {per_call}", f"launches {launches}"]))
+        + [model_note(labels), f"launches by request {per_call}", f"launches {launches}"]))
 
     t0 = time.perf_counter()
     e2e = {cfm: wall_s(lambda cfm=cfm: smt.sparse_matrix_multiply(
@@ -1348,11 +1420,13 @@ class config_set:
         smt.set_config(self.saved)
 
 
-def esc_request(a_sp, b_sp, kw, cfg):
+def esc_request(label, a_sp, b_sp, kw, cfg):
     """A call for :func:`counted`: sparse_matrix_multiply under ``cfg``, its
-    route and the route's detail."""
+    route and the route's detail (the cost model pinned as in :func:`request`)."""
+    pin = model_pin(label, a_sp, b_sp, **kw)
+
     def call(_):
-        with config_set(**cfg):
+        with config_set(**cfg, **pin):
             got = smt.sparse_matrix_multiply(a_sp, b_sp, **kw)
         return got, (smt.get_last_route(), api.get_last_route_detail())
     return call
@@ -1372,7 +1446,8 @@ def esc_main_phase(ops: dict):
     answers = {}
     reset_launches()
     per_request, seconds = counted(
-        [(label, esc_request(*ops[key], kw, cfg)) for label, key, kw, cfg, _ in ESC_REQUESTS],
+        [(label, esc_request(label, *ops[key], kw, cfg))
+         for label, key, kw, cfg, _ in ESC_REQUESTS],
         answers)
     launches_esc = dict(LAUNCHES)
     details = {}
@@ -1396,7 +1471,8 @@ def esc_main_phase(ops: dict):
         nnz[label] = answers[label][0].nnz
     del refs
     kept = {label: answers[label][0] for label in TIMED_ESC}
-    again = smt.sparse_matrix_multiply(*ops["esc"])
+    with config_set(**pinned_like("esc_binned_a")):
+        again = smt.sparse_matrix_multiply(*ops["esc"])
     same_bits(again, kept["esc_binned_a"], "esc_binned_a")
     del answers, again
     phase("esc-main", t0, " | ".join(
@@ -1408,6 +1484,7 @@ def esc_main_phase(ops: dict):
         + ["esc_binned_a twice: the same bits",
            "dense_chunks_e extracted by " + ("K4" if per_request["dense_chunks_e"]["dense_to_csr"]
                                              else "host packing"),
+           model_note([label for label, _, _, _, _ in ESC_REQUESTS]),
            f"launches by request {per_request}",
            f"launches {launches_esc}"]))
     return per_request, launches_esc, kept
@@ -1519,7 +1596,8 @@ def esc_timing_phase(ops: dict, kept: dict, name: str, smi: str) -> dict:
     windowed at (a), classic at (c)."""
     t0 = time.perf_counter()
     requests = {label: (key, cfg) for label, key, _, cfg, _ in ESC_REQUESTS}
-    e2e = {label: route_timing(*ops[requests[label][0]], requests[label][1], kept[label], label)
+    e2e = {label: route_timing(*ops[requests[label][0]],
+                               {**requests[label][1], **pinned_like(label)}, kept[label], label)
            for label in TIMED_ESC}
     a_sp, b_sp = ops["esc"]
     expand = expansion_size(a_sp.indices, a_sp.nnz, b_sp.indptr)
@@ -1540,7 +1618,9 @@ def esc_timing_phase(ops: dict, kept: dict, name: str, smi: str) -> dict:
                resident=engines)
     phase("esc-timing", t0, f"{name} [{smi}]: " + " | ".join(
         [f"{label} ({r['route']}) end to end {r['seconds']:.4f} s = {r['nnz_c_per_s']:.4e} "
-         f"nnz(C)/s (min of {PATH_RUNS}, each call the same bits)" for label, r in e2e.items()]
+         f"nnz(C)/s (min of {PATH_RUNS}, each call the same bits"
+         f"{'; model pinned as in esc-main' if label in MODEL_PINNED else ''})"
+         for label, r in e2e.items()]
         + [f"multiply {label} ({r['rows']} rows): {r['n_partials']} partials ("
            f"{', '.join(f'{key} {r[key]}' for key in ('window', 'lane_width', 'padded_slots', 'tail') if key in r)}"
            f"), plan {r['plan_host_s']:.3f} s host, "
@@ -2019,10 +2099,231 @@ def dist_phases(a_sp, b_sp, esc_pair, name: str, smi: str) -> dict:
                      io=dict(save_s=io["save_s"], ingest_s=io["ingest_s"])))
 
 
+# ---------------------------------------------------------------------------
+# Phase 20 (cost-model): the router's host/device cost model (api._route_costs)
+# re-fitted on this machine's host and PCIe link, a crossover sweep over its
+# three branches, and the port's demo on the card.
+# ---------------------------------------------------------------------------
+
+LINK_BYTES = 200 << 20  # the directly timed pageable transfer beside the 2 MiB probe
+# spgemm_host partials/s at rising reuse (partials per output entry), each
+# operand pair: (label, kind, n, nnz or density, seeds).  reuse ~1: two
+# hypersparse_random operands; ~10 and ~100: sp.random at rising density.
+HOST_RATE_POINTS = (
+    ("hyper_100k_reuse1", "hyper", 100_000, 1_000_000, (61, 62)),
+    ("random_1000_d0.1_reuse10", "random", 1000, 0.1, (63, 64)),
+    ("random_1000_d0.316_reuse100", "random", 1000, 0.316, (65, 66)),
+)
+# The crossover sweep: (label, kind, n, nnz or density, seeds, keywords),
+# expansions 8e5 ... 5.6e7 on the sparse branch, two dense-output and two
+# triple requests (H, Q both n^2).  Their device routes launch K1-K4:
+# sparse_random_3000 is extracted by K4, sparse_random_2500_symmetric (~63%
+# of its triangle filled: packed CSR is the smaller download) by K2 after K3
+# and K1, dense_random_3000_symmetric runs K1, the triples K3 x2 and K1.
+COST_SWEEP = (
+    ("sparse_hyper_50k", "hyper", 50_000, 200_000, (67, 68), dict()),
+    ("sparse_random_3000", "random", 3000, 0.01, (69, 70), dict()),
+    ("sparse_random_2500_symmetric", "random", 2500, 0.02, (73, 74), dict(symmetric=True)),
+    ("sparse_hyper_200k", "hyper", ESC_N, ESC_NNZ, ESC_SEEDS, dict()),  # request (a)
+    ("sparse_random_2500", "random", 2500, 0.06, (75, 76), dict()),
+    ("dense_random_3000_symmetric", "random", 3000, 0.01, (69, 70),
+     dict(output_format="dense", symmetric=True)),
+    ("dense_random_2500", "random", 2500, 0.06, (75, 76), dict(output_format="dense")),
+    ("triple_random_2000", "random", 2000, 0.01, (77, 78), dict(use_triple_product=True)),
+    ("triple_random_2500_full", "random", 2500, 0.01, (79, 80),
+     dict(use_triple_product=True, compute_full_matrix=1)),
+)
+HOST_ROUTE = dict(host_compute_limit=1 << 62)  # every request to spgemm_host / scipy
+DEVICE_ROUTE = dict(host_compute_limit=0, **ON_DEVICE)  # as the port's tests force it
+
+
+def cost_operands(kind: str, n: int, size, seeds):
+    if kind == "hyper":
+        return hyper_pair(n, n, n, size, size, seeds)
+    return operands(n, size, seeds)
+
+
+def best_call(fn, runs: int = PATH_RUNS):
+    """Warm, then the minimum over ``runs`` host-clock seconds of ``fn``
+    (synchronised): (seconds, the last result, its route)."""
+    got = fn()
+    torch.cuda.synchronize()
+    best = float("inf")
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        got = fn()
+        torch.cuda.synchronize()
+        best = min(best, time.perf_counter() - t0)
+    return best, got, smt.get_last_route()
+
+
+def link_phase() -> dict:
+    """The calibrated link terms beside directly timed LINK_BYTES pageable
+    transfers, and what the probe's terms predict for them."""
+    t0 = time.perf_counter()
+    terms = dict(api._calibrate_link(DEVICE))
+    calibrate_s = time.perf_counter() - t0
+    x = torch.ones(LINK_BYTES // 4, dtype=torch.float32, device=DEVICE)
+    down_s = wall_s(lambda: fetch_np(x))
+    h = np.ones(LINK_BYTES // 4, np.float32)
+    up_s = wall_s(lambda: torch.from_numpy(h).to(DEVICE))
+    del x, h
+    predicted_down = terms["link_fixed_s"] + LINK_BYTES / terms["link_down_bytes_per_s"]
+    predicted_up = terms["link_fixed_s"] + LINK_BYTES / terms["link_up_bytes_per_s"]
+    return dict(calibrated=terms, calibrate_s=calibrate_s, bytes=LINK_BYTES,
+                down_s=down_s, down_bytes_per_s=LINK_BYTES / down_s,
+                down_predicted_s=predicted_down, down_miss=down_s / predicted_down,
+                up_s=up_s, up_bytes_per_s=LINK_BYTES / up_s,
+                up_predicted_s=predicted_up, up_miss=up_s / predicted_up)
+
+
+def host_rate_fit() -> dict:
+    """spgemm_host partials/s at each HOST_RATE_POINTS pair (warm, min of
+    PATH_RUNS), and the least-squares host_rate_base of the sqrt(reuse) model
+    in log space (each point's relative residual)."""
+    points = {}
+    for label, kind, n, size, seeds in HOST_RATE_POINTS:
+        a_sp, b_sp = cost_operands(kind, n, size, seeds)
+        expand = expansion_size(a_sp.indices, a_sp.nnz, b_sp.indptr)
+        reuse = max(expand / max(api._est_result_nnz(expand, n, n), 1), 1.0)
+        seconds, got, _ = best_call(lambda: spgemm_host(a_sp, b_sp, n_partials=expand))
+        points[label] = dict(partials=expand, nnz=got.nnz, reuse=reuse, seconds=seconds,
+                             partials_per_s=expand / seconds)
+    logs = [np.log(p["partials_per_s"]) - 0.5 * np.log(p["reuse"]) for p in points.values()]
+    base = float(np.exp(np.mean(logs)))
+    for p in points.values():
+        p["residual"] = p["partials_per_s"] / (base * p["reuse"] ** 0.5) - 1.0
+    return dict(points=points, host_rate_base=base)
+
+
+def pack_rate(sa_sp, sb_sp) -> dict:
+    """dense_pack elements/s on the float32 panel the dense route downloads
+    for the SIB_N^2 sibling product (warm, min of PATH_RUNS)."""
+    a = smt.from_scipy(sa_sp, dtype=torch.float32, device=DEVICE)
+    b = smt.from_scipy(sb_sp, dtype=torch.float32, device=DEVICE)
+    panel = fetch_np(spgemm_dense_out(a, b))
+    del a, b
+    seconds = wall_s(lambda: dense_pack(panel))
+    return dict(elements=panel.size, seconds=seconds, host_pack_rate=panel.size / seconds)
+
+
+def sweep_oracle(a_sp, b_sp, kw):
+    """scipy's answer to a sweep request: CSR for a sparse output, else dense."""
+    if kw.get("use_triple_product"):
+        c = (a_sp @ b_sp @ a_sp.T).toarray()
+        return np.triu(c) + np.triu(c, 1).T if kw.get("compute_full_matrix") else np.triu(c)
+    if kw.get("output_format") == "dense":
+        c = (a_sp @ b_sp).toarray()
+        return np.triu(c) if kw.get("symmetric") else c
+    c = (a_sp @ b_sp).tocsr()
+    return sp.triu(c, format="csr") if kw.get("symmetric") else c
+
+
+def sweep_result_ok(label, got, want) -> float:
+    """A sweep result against scipy's at the oracle; returns max |diff|."""
+    if sp.issparse(want):
+        return same_csr(got, want, label)
+    require(got.shape == want.shape and np.allclose(got, want, rtol=RTOL, atol=ATOL),
+            f"{label}: outside the oracle")
+    return float(np.abs(got - want).max())
+
+
+def crossover_sweep() -> tuple:
+    """Each COST_SWEEP request on the host route, the device route and as the
+    model decides (warm, min of PATH_RUNS each), with the model's estimates
+    and pick, each result against scipy; the hand kernels' launches over the
+    sweep (counts zeroed just before it)."""
+    rows = []
+    reset_launches()
+    for label, kind, n, size, seeds, kw in COST_SWEEP:
+        a_sp, b_sp = cost_operands(kind, n, size, seeds)
+        est_host, est_dev = model_costs(a_sp, b_sp, **kw)
+        call = lambda: smt.sparse_matrix_multiply(a_sp, b_sp, **kw)  # noqa: E731
+        want = sweep_oracle(a_sp, b_sp, kw)
+        times, routes, errs = {}, {}, {}
+        for way, cfg in (("host", HOST_ROUTE), ("device", DEVICE_ROUTE), ("model", {})):
+            with config_set(**cfg):
+                times[way], got, routes[way] = best_call(call)
+            errs[way] = sweep_result_ok(f"{label} ({way})", got, want)
+            del got
+        del want
+        pick = "host" if est_host < est_dev else "device"
+        require(routes["host"] == "host" and routes["device"] != "host",
+                f"{label}: forced routes {routes}")
+        require((routes["model"] == "host") == (pick == "host"),
+                f"{label}: the model picked {pick} but the router took {routes['model']}")
+        faster = "host" if times["host"] < times["device"] else "device"
+        r = dict(label=label, partials=int(expansion_size(a_sp.indices, a_sp.nnz, b_sp.indptr)),
+                 **kw, est_host_s=est_host, est_dev_s=est_dev, pick=pick, host_s=times["host"],
+                 device_s=times["device"], model_s=times["model"], device_route=routes["device"],
+                 faster=faster, pick_right=pick == faster, max_abs_err=errs)
+        rows.append(r)
+        print(f"[cost-sweep] {label}: {r['partials']:.4e} partials | est_host {est_host:.4e} s, "
+              f"est_dev {est_dev:.4e} s -> {pick} | host route {r['host_s']:.4f} s, device "
+              f"route ({r['device_route']}) {r['device_s']:.4f} s, as the model decides "
+              f"{r['model_s']:.4f} s | faster: {faster}, "
+              f"{'right' if r['pick_right'] else 'WRONG'} pick | max abs err vs scipy {errs}",
+              flush=True)
+    launches = dict(LAUNCHES)
+    for key in DENSE_PATH_KERNELS:
+        require(launches[key] > 0, f"the cost-model sweep launched no {KERNELS[key][0]}")
+    return rows, launches
+
+
+def demo_on_card() -> list:
+    """examples/demo_torch.py on the card, in its own process: every line [ok]."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.run([sys.executable, os.path.join(root, "examples", "demo_torch.py"),
+                           "--device", DEVICE], cwd=root, capture_output=True, text=True,
+                          timeout=600)
+    lines = proc.stdout.strip().splitlines()
+    require(proc.returncode == 0 and lines and all(line.startswith("[ok]") for line in lines),
+            f"demo_torch.py: exit {proc.returncode}, output {proc.stdout!r} {proc.stderr[-2000:]!r}")
+    return lines
+
+
+def cost_model_phase(sa_sp, sb_sp, name: str, smi: str) -> dict:
+    """Phase 20: the link calibration beside a LINK_BYTES transfer, the host
+    rate fit, the pack rate, the three-branch crossover sweep, the demo."""
+    t0 = time.perf_counter()
+    link = link_phase()
+    fit = host_rate_fit()
+    pack = pack_rate(sa_sp, sb_sp)
+    threads = dict(cpu_count=os.cpu_count(), omp_num_threads=os.environ.get("OMP_NUM_THREADS"),
+                   torch_threads=torch.get_num_threads())
+    cal = link["calibrated"]
+    phase("cost-model", t0, f"{name} [{smi}] | host {threads} | link: calibrated in "
+          f"{link['calibrate_s']:.4f} s: link_fixed_s {cal['link_fixed_s']:.3e}, up "
+          f"{cal['link_up_bytes_per_s']:.4e} B/s, down {cal['link_down_bytes_per_s']:.4e} B/s; "
+          f"{LINK_BYTES >> 20} MiB pageable, min of {PATH_RUNS}: down {link['down_s']:.4f} s "
+          f"({link['down_bytes_per_s']:.4e} B/s; the probe predicts {link['down_predicted_s']:.4f}"
+          f" s, x{link['down_miss']:.2f}), up {link['up_s']:.4f} s ({link['up_bytes_per_s']:.4e}"
+          f" B/s; predicted {link['up_predicted_s']:.4f} s, x{link['up_miss']:.2f}) | "
+          "spgemm_host, min of 3: " + "; ".join(
+              f"{label}: {p['partials']:.4e} partials, reuse {p['reuse']:.2f}, {p['seconds']:.4f}"
+              f" s, {p['partials_per_s']:.4e}/s, residual {p['residual']:+.3f}"
+              for label, p in fit["points"].items())
+          + f" | fit host_rate_base {fit['host_rate_base']:.4e} | dense_pack of the {SIB_N}^2 "
+          f"f32 panel {pack['seconds']:.4f} s: host_pack_rate {pack['host_pack_rate']:.4e}/s")
+    t1 = time.perf_counter()
+    rows, launches = crossover_sweep()
+    phase("cost-sweep", t1, f"{len(rows)} requests, {sum(not r['pick_right'] for r in rows)} "
+          f"wrong picks; launches over the sweep {launches}")
+    t1 = time.perf_counter()
+    demo = demo_on_card()
+    phase("demo", t1, f"examples/demo_torch.py --device {DEVICE}: {len(demo)} lines, all [ok]; "
+          f"last: {demo[-1]}")
+    return dict(card=name, nvidia_smi=smi, host=threads, link=link, host_rate=fit,
+                pack=pack, sweep=rows, launches=launches,
+                wrong_picks=[r["label"] for r in rows if not r["pick_right"]],
+                phase_s=time.perf_counter() - t0)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
 
     # 1. card
     t0 = time.perf_counter()
@@ -2204,13 +2505,18 @@ def main() -> int:
     t0 = time.perf_counter()
     phase("split3-gate", t0, "max rel err vs f64 oracle: " + split3_gate())
 
-    # 4. main path: the requests through the public entry point, counted
+    # 4. main path: the requests through the public entry point, counted.  The
+    # process's first routing decision would calibrate the card's link
+    # (api._calibrate_link); it is done here, before the requests, and timed.
     t0 = time.perf_counter()
+    link_first = dict(api._calibrate_link(DEVICE))
+    calibration_s = time.perf_counter() - t0
     ops = {"headline": (a_sp, b_sp), "sibling": (sa_sp, sb_sp)}
     answers = {}
     reset_launches()
     per_request, seconds = counted(
-        [(label, request(*ops[which], **kw)) for label, which, kw in MAIN_REQUESTS], answers)
+        [(label, request(label, *ops[which], **kw)) for label, which, kw in MAIN_REQUESTS],
+        answers)
     launches_main = dict(LAUNCHES)
     results, routes = split_answers(answers)
     del answers
@@ -2257,7 +2563,10 @@ def main() -> int:
         f"({nonsym_nnz / SIB_N**2:.3f} dense), max abs err {nonsym_err:.2e}, "
         f"{seconds['nonsymmetric_12288']:.3f} s",
         f"dense output {N}^2: max abs err {dense_err:.2e}, {seconds['dense_output_10k']:.3f} s",
-        f"routes {routes}", f"launches by request {per_request}", f"launches {launches_main}"]))
+        f"routes {routes}", model_note([label for label, _, _ in MAIN_REQUESTS]),
+        f"link calibrated before the first request (api._calibrate_link, {calibration_s:.4f} s: "
+        f"no first-call time here includes it) {link_first}",
+        f"launches by request {per_request}", f"launches {launches_main}"]))
 
     # 4b. the explicit-FAST request through the device-resident API: K1's
     # split3 branch, which the term gate admits at the headline, counted
@@ -2283,11 +2592,12 @@ def main() -> int:
 
     # 5. sibling: symmetric sparse output at 12,288^2 (K2 on a ~36%-dense product)
     t0 = time.perf_counter()
-    got = smt.sparse_matrix_multiply(sa_sp, sb_sp, symmetric=True)
+    with config_set(**model_pin("sibling_symmetric_12288", sa_sp, sb_sp, symmetric=True)):
+        got = smt.sparse_matrix_multiply(sa_sp, sb_sp, symmetric=True)
     require(smt.get_last_route() == "dense", f"sibling route {smt.get_last_route()!r}")
     sib_err = same_csr(got, sp.triu(sib_ref, format="csr"), "symmetric sibling")
     phase("sibling", t0, f"symmetric {SIB_N}^2: nnz {got.nnz} ({got.nnz / SIB_N**2:.3f} of "
-          f"{SIB_N}^2), max abs err {sib_err:.2e}")
+          f"{SIB_N}^2), max abs err {sib_err:.2e} | {model_note(['sibling_symmetric_12288'])}")
     del got, sib_ref
 
     # 6. device-resident and end-to-end timing at the headline, and its stages
@@ -2355,7 +2665,8 @@ def main() -> int:
     answers = {}
     reset_launches()
     bsr_per_request, bsr_seconds = counted(
-        [(label, request(a_bsp, bsr_b[which], **kw)) for label, which, kw, _ in BSR_REQUESTS],
+        [(label, request(label, a_bsp, bsr_b[which], **kw))
+         for label, which, kw, _ in BSR_REQUESTS],
         answers)
     launches_bsr = dict(LAUNCHES)
     bsr_results, bsr_routes = split_answers(answers)
@@ -2388,6 +2699,7 @@ def main() -> int:
         [f"{label}: {errs[label]:.2e} max abs err vs f64 oracle, {bsr_seconds[label]:.3f} s"
          for label, _, _, _ in BSR_REQUESTS]
         + [f"bsr_x_bsr_8192 extracted by {extraction}", f"routes {bsr_routes}",
+           model_note([label for label, _, _, _ in BSR_REQUESTS]),
            f"launches by request {bsr_per_request}", f"launches {launches_bsr}"]))
 
     # 9. BSR route against the dense route end to end, and request 1's stages
@@ -2446,6 +2758,14 @@ def main() -> int:
     # 15-19. the multi-device layer on a mesh of DIST_SLOTS slots of the card
     dist = dist_phases(a_sp, b_sp, esc_pair, name, smi)
     del esc_pair
+
+    # 20. the router's cost model re-fitted on this host and link, its
+    # crossover sweep, and the demo on the card
+    cost = cost_model_phase(sa_sp, sb_sp, name, smi)
+    cost["link_first"] = dict(calibrated=link_first, calibrate_s=calibration_s)
+    cost["counted_requests"] = {label: dict(est_host_s=e[0], est_dev_s=e[1],
+                                            pinned=label in MODEL_PINNED)
+                                for label, e in MODEL_ESTIMATES.items()}
     report["csr_to_dense"]["shapes"].update(dist["k3_shapes"])
     report["dense_to_csr"]["shapes"].update(dist["k4_shapes"])
     k3_by_request = {**k3_operands(), **dist["k3_map"]}
@@ -2490,6 +2810,8 @@ def main() -> int:
         })
     print(json.dumps({"esc": esc}))
     print(json.dumps({"dist": dist["summary"]}))
+    print(json.dumps({"cost_model": cost}))
+    phase("total", t_start, "chip_smoke.py, every phase")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

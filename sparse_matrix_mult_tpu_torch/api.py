@@ -8,9 +8,11 @@ or host extraction and its BSR rung for block-sparse operands (K5/K6), the
 sparse-output ladder below it (the binned, windowed and classic ESC engines,
 row-chunked dense and flop-balanced row-chunked ESC), and the triple product
 ``H Q H^T`` (route ``"triple"``, and the device-resident
-:func:`triple_product`).  The JAX package's host/device cost model
-(``_host_route_wins``, a model of a slow network link) is not ported: the
-port routes to the host only below ``host_compute_limit``.
+:func:`triple_product`).  Above ``host_compute_limit`` the three branches
+(sparse, dense and triple) ask JAX's host/device cost model
+(:func:`_route_costs`, fitted on an H100 host and its PCIe link; pin it with
+``auto_calibrate_link=False`` and the ``link_*`` / ``host_*`` fields) whether
+the host's Gustavson kernel beats the device round trip.
 
 Every input is canonicalized (sorted indices, duplicates summed) on a copy
 before any planning, so a structure plan and the uploaded operand always
@@ -136,6 +138,12 @@ def _upload_dtype(a_sp, b_sp, device):
     return None, prec
 
 
+def _value_bytes(a_sp, b_sp, device) -> int:
+    """Bytes of one value on the wire: 4 when the upload dtype resolves to
+    float32, else 8 (as JAX prices it)."""
+    return 4 if _upload_dtype(a_sp, b_sp, device)[0] == torch.float32 else 8
+
+
 def block_occupancy(mat, block_size: int) -> float:
     """Fraction of occupied (block_size x block_size) blocks of a scipy
     sparse matrix, in one O(nnz) pass without a sort: the block key of every
@@ -171,6 +179,113 @@ def _bsr_route_ok(a_sp, device) -> bool:
     if m < 2 * b or k < 2 * b:
         return False  # fewer than 2x2 blocks: nothing to skip
     return block_occupancy(a_sp, b) <= cfg.bsr_occupancy_cutoff
+
+
+def _device_key(device) -> str:
+    """The device a calibration belongs to: ``"cuda"`` names the current card."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return str(device)
+
+
+# Calibrated link terms by device (_calibrate_link).
+_LINK_TERMS: dict = {}
+
+
+def _calibrate_link(device) -> dict:
+    """Measure ``device``'s link and remember it: the ``link_*`` terms by name.
+
+    JAX's probe (``sparse_matrix_mult_tpu/api.py:498-545``) in torch: the round
+    trip is the minimum of 3 one-element kernels read back by ``.item()``; the
+    download a fresh 2 MiB result fetched as :func:`fetch_np` fetches it
+    (pageable ``.cpu()``), net of the round trip; the upload a 2 MiB
+    ``torch.from_numpy(h).to(device)`` and a synchronize.  Two differences:
+    the terms are kept per device (the port's device is explicit, and a CPU
+    calibration must not price a CUDA request), not written into the config;
+    and a probe that fails raises, where JAX keeps its defaults.
+    """
+    key = _device_key(device)
+    dev = torch.device(key)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    one = torch.ones(1, device=dev)
+    (one + 1.0).item()
+    rtts = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        (one + 1.0).item()
+        rtts.append(time.perf_counter() - t0)
+    rtt = min(rtts)
+    nbytes = 2 << 20
+    x = torch.ones(nbytes // 4, dtype=torch.float32, device=dev)
+    fetch_np(x * 2.0)
+    t0 = time.perf_counter()
+    fetch_np(x * 2.0)  # a fresh result each time
+    down_bw = nbytes / max(time.perf_counter() - t0 - rtt, 1e-5)
+    h = np.ones(nbytes // 4, np.float32)
+    torch.from_numpy(h).to(dev)
+    sync()
+    t0 = time.perf_counter()
+    torch.from_numpy(h).to(dev)
+    sync()
+    up_bw = nbytes / max(time.perf_counter() - t0 - rtt, 1e-5)
+    _LINK_TERMS[key] = dict(link_fixed_s=max(rtt, 1e-5), link_up_bytes_per_s=max(up_bw, 1e6),
+                            link_down_bytes_per_s=max(down_bw, 1e6))
+    return _LINK_TERMS[key]
+
+
+def _est_result_nnz(expand: int, m: int, n: int) -> int:
+    """Expected nnz(C) when ``expand`` partials land uniformly in the m*n
+    output slots: a slot is hit with probability 1-exp(-expand/(m*n)).  Exact
+    in both limits (hypersparse: nnz ~= expand; dense: nnz ~= m*n)."""
+    slots = max(m * n, 1)
+    return int(slots * (1.0 - np.exp(-expand / slots)))
+
+
+def _route_costs(expand: int, a_sp, b_sp, device, out_bytes: int | None = None):
+    """(est_host, est_dev) seconds of a scipy-in request: JAX's cost model
+    (``sparse_matrix_mult_tpu/api.py:557-599``), term for term.
+
+    The host multiplies at ``host_rate_base * sqrt(reuse)`` partials/s, reuse
+    = partials / expected nnz(C) (SPA cache reuse).  The device pays the
+    link's fixed latency, the operands' upload and the result's download:
+    ``out_bytes``, or for a sparse output the cheaper of packed CSR and the
+    raw panel plus the host pack.  Entries are an int32 index and a value of
+    the upload dtype.  With ``auto_calibrate_link`` the link terms are the
+    device's measured ones (:func:`_calibrate_link`, once per device).
+    """
+    cfg = get_config()
+    link = dict(link_fixed_s=cfg.link_fixed_s, link_up_bytes_per_s=cfg.link_up_bytes_per_s,
+                link_down_bytes_per_s=cfg.link_down_bytes_per_s)
+    if cfg.auto_calibrate_link:
+        link = _LINK_TERMS.get(_device_key(device)) or _calibrate_link(device)
+    m = a_sp.shape[0]
+    n = b_sp.shape[1]
+    val_bytes = _value_bytes(a_sp, b_sp, device)
+    entry_bytes = 4 + val_bytes
+    nnz_est = _est_result_nnz(expand, m, n)
+    down_bw = link["link_down_bytes_per_s"]
+    if out_bytes is None:
+        panel_cost = val_bytes * m * n / down_bw + m * n / cfg.host_pack_rate
+        down_cost = min(entry_bytes * nnz_est / down_bw, panel_cost)
+    else:
+        down_cost = out_bytes / down_bw
+    reuse = max(expand / max(nnz_est, 1), 1.0)
+    est_host = expand / (cfg.host_rate_base * reuse**0.5)
+    up_bytes = entry_bytes * (a_sp.nnz + b_sp.nnz)
+    est_dev = link["link_fixed_s"] + up_bytes / link["link_up_bytes_per_s"] + down_cost
+    return est_host, est_dev
+
+
+def _host_route_wins(expand: int, a_sp, b_sp, device, out_bytes: int | None = None) -> bool:
+    """Whether the cost model sends a scipy-in request to the host
+    (:func:`_route_costs`).  The device-resident entry points never ask."""
+    est_host, est_dev = _route_costs(expand, a_sp, b_sp, device, out_bytes)
+    return est_host < est_dev
 
 
 def _bsr_product_host(a_sp, b_sp, symmetric: bool, device) -> torch.Tensor:
@@ -306,7 +421,8 @@ def _binned_plan_for(a_sp, b_sp, expand: int):
 def _sparse_out_host(a_sp, b_sp, symmetric: bool, esc_limit: int, device):
     """sparse x sparse -> scipy CSR: the JAX strategy ladder, first match wins.
 
-    0. few partial products     -> native host Gustavson (unless force_bsr)
+    0. few partial products, or -> native host Gustavson (unless force_bsr)
+       the cost model says host    (unless A takes the BSR route)
     1. everything fits densely  -> dense route (unless ESC would win),
                                    BSR kernels for a block-sparse A
     2. expansion within budget  -> binned ESC, else windowed or classic ESC
@@ -324,7 +440,11 @@ def _sparse_out_host(a_sp, b_sp, symmetric: bool, esc_limit: int, device):
     expand = expansion_size(a_sp.indices, a_sp.nnz, b_sp.indptr)
     clock.mark("expansion_size")
     keep = cfg.keep_structure
-    if expand <= cfg.host_compute_limit and not cfg.force_bsr:
+    # _bsr_route_ok stays behind the model: its O(nnz) occupancy scan runs
+    # only when the model already says "host".
+    if (expand <= cfg.host_compute_limit and not cfg.force_bsr) or (
+            _host_route_wins(expand, a_sp, b_sp, device)
+            and not (_bsr_route_ok(a_sp, device) and not keep)):
         out = spgemm_host(a_sp, b_sp, symmetric, n_partials=expand, keep_structure=keep)
         _set_route("host")
         return out
@@ -475,7 +595,9 @@ def _triple_product_host(a_sp, b_sp, compute_full_matrix: int, device) -> np.nda
     Small products (twice the expansion of ``A . B`` at or below
     ``host_compute_limit``) are multiplied on the host in f64: below the
     device dispatch floor, and where FAST's f32 accumulation would risk the
-    oracle's rtol = 1e-5 on mixed-sign operands.  The rest go through
+    oracle's rtol = 1e-5 on mixed-sign operands; so are those the cost model
+    prices cheaper there (:func:`_route_costs`, the m x m result as the
+    download).  The rest go through
     :func:`triple_product_dense` on ``device`` (route ``"triple"``).
     """
     if a_sp.shape[1] != b_sp.shape[1]:
@@ -483,8 +605,10 @@ def _triple_product_host(a_sp, b_sp, compute_full_matrix: int, device) -> np.nda
             "Triple product requires B.cols == A.cols so that (A.B).A^T "
             "is well defined."
         )
+    m = a_sp.shape[0]
     expand = 2 * expansion_size(a_sp.indices, a_sp.nnz, b_sp.indptr)
-    if expand <= get_config().host_compute_limit:
+    if expand <= get_config().host_compute_limit or _host_route_wins(
+            expand, a_sp, b_sp, device, out_bytes=_value_bytes(a_sp, b_sp, device) * m * m):
         c = ((a_sp @ b_sp) @ a_sp.T).toarray()
         upper = np.triu(c)
         _set_route("host")
@@ -572,10 +696,16 @@ def sparse_matrix_multiply(
     elif output_format == "dense":
         cfg = get_config()
         expand = expansion_size(matrix_a.indices, matrix_a.nnz, matrix_b.indptr)
-        if expand <= cfg.host_compute_limit and not cfg.force_bsr:
+        out_bytes = matrix_a.shape[0] * matrix_b.shape[1] * _value_bytes(matrix_a, matrix_b, device)
+        # JAX's decision, host iff small or (the model says host and A is not
+        # block-sparse), with the occupancy scan run once.
+        small = expand <= cfg.host_compute_limit and not cfg.force_bsr
+        bsr = not small and _bsr_route_ok(matrix_a, device)
+        if small or (not bsr and _host_route_wins(expand, matrix_a, matrix_b, device,
+                                                  out_bytes=out_bytes)):
             result = spgemm_host(matrix_a, matrix_b, symmetric, n_partials=expand).toarray()
             _set_route("host")
-        elif _bsr_route_ok(matrix_a, device):
+        elif bsr:
             c = _bsr_product_host(matrix_a, matrix_b, symmetric, device)
             result = fetch_np(c).astype(np.float64)
             _set_route("bsr")

@@ -1,6 +1,6 @@
 """Configuration for the PyTorch/CUDA sparse-multiply port.
 
-The routing thresholds and the precision policy of
+The routing thresholds, the host/device cost model and the precision policy of
 :mod:`sparse_matrix_mult_tpu.config`, trimmed to what the ported slice
 reads.  Two differences:
 
@@ -52,6 +52,31 @@ class Config:
     # At or below this many partial products the scipy entry point multiplies
     # on the host (native Gustavson kernel).
     host_compute_limit: int = 1 << 19
+    # Host/device cost model of the scipy-in/scipy-out entry point, above the
+    # hard limit (api._route_costs): the host wins when
+    #   partials / (host_rate_base * sqrt(reuse))
+    #     < link_fixed_s + up_bytes / link_up_bytes_per_s + down_cost,
+    # reuse = partials / expected nnz(C).  The download term is the cheaper of
+    # packed CSR and the raw panel plus a host pack at host_pack_rate
+    # elements/s.  Each default is what chip_smoke.py phase 20 (cost-model)
+    # measured on one NVIDIA H100 80GB HBM3, 700.00 W, behind its PCIe link,
+    # on a host of 8 CPUs (OMP_NUM_THREADS unset):
+    # spgemm_host's least-squares rate over reuse ~1, ~10 and ~100 (8.1e7,
+    # 7.4e8 and 2.1e9 partials/s: residuals of -48%, +48%, +31%);
+    host_rate_base: float = 1.572e8
+    # the link as the 2 MiB probe of _calibrate_link measured it late in the
+    # run (a 200 MiB pageable download ran at 2.42e9 B/s, 3.5x below the
+    # probe's rate, the upload at 7.25e9; in a fresh process the probe read
+    # downloads at 6.6e8 B/s);
+    link_fixed_s: float = 2.432e-5
+    link_up_bytes_per_s: float = 7.049e9
+    link_down_bytes_per_s: float = 8.382e9
+    # dense_pack of the 12,288^2 float32 panel of the dense route.
+    host_pack_rate: float = 9.038e8
+    # Measure the link of each device at its first routing decision (a
+    # one-element round trip, a 2 MiB download and upload) and price that
+    # device's requests with it in place of the three link_* fields.
+    auto_calibrate_link: bool = True
     # Partial-product budgets of the ESC engines; the router compares the
     # expansion against them to decide between ESC and the dense route.
     esc_expand_limit: int = 1 << 22

@@ -15,10 +15,11 @@ import sparse_matrix_mult_tpu_torch as tsmm
 from sparse_matrix_mult_tpu_torch import api
 
 TOL = dict(rtol=1e-12, atol=1e-12)
-# The JAX package routes by a host/device cost model the port does not have;
-# these settings price its device at nothing (tests/test_large_sparse.py).
-JAX_ON_DEVICE = dict(auto_calibrate_link=False, link_fixed_s=1e-9, link_up_bytes_per_s=1e15,
-                     link_down_bytes_per_s=1e15, host_rate_base=1.0)
+# Both packages route by the same host/device cost model (tests/test_torch_cost_model.py);
+# these settings price the device at nothing in either (tests/test_large_sparse.py), so
+# the routes these tests assert do not hang on the link a calibration measures.
+ON_DEVICE = dict(auto_calibrate_link=False, link_fixed_s=1e-9, link_up_bytes_per_s=1e15,
+                 link_down_bytes_per_s=1e15, host_rate_base=1.0)
 
 
 @pytest.fixture(scope="module")
@@ -28,10 +29,13 @@ def operands():
     return a, b, (a @ b).tocsr()
 
 
-@pytest.fixture
+@pytest.fixture(autouse=True)
 def config():
-    """Restore both packages' configurations after a test changes them."""
+    """Pin both packages' cost models on the device, and restore both
+    configurations after the test."""
     saved_t, saved_j = tsmm.get_config(), jsmm.get_config()
+    tsmm.set_config(**ON_DEVICE)
+    jsmm.set_config(**ON_DEVICE)
     yield tsmm.set_config
     tsmm.set_config(saved_t)
     jsmm.set_config(saved_j)
@@ -161,7 +165,7 @@ def test_imem_size_scales_the_esc_budget(config):
     b = sp.random(2000, 2000, density=0.01, format="csr", random_state=10)
     expand = int((np.diff(b.indptr)[a.indices]).sum())
     config(esc_expand_limit=expand, use_binned_esc=False)
-    jsmm.set_config(esc_expand_limit=expand, use_binned_esc=False, **JAX_ON_DEVICE)
+    jsmm.set_config(esc_expand_limit=expand, use_binned_esc=False)
     for imem_size, route in ((5, "esc_windowed"), (4, "dense")):
         got = tsmm.sparse_matrix_multiply(a, b, imem_size=imem_size, device="cpu")
         assert tsmm.get_last_route() == route
@@ -173,9 +177,8 @@ def test_imem_size_scales_the_esc_budget(config):
 def test_unported_rungs_raise(operands, config):
     """The sparse-output rungs below the dense route (which raised
     NotImplementedError until the port carried them), each against JAX's
-    route label and product (JAX pinned off its host cost model)."""
+    route label and product (both pinned off the host cost model)."""
     a, b, _ = operands
-    jsmm.set_config(**JAX_ON_DEVICE)
 
     def both(x, y, route):
         got = tsmm.sparse_matrix_multiply(x, y, device="cpu")

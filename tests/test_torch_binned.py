@@ -156,9 +156,11 @@ def test_device_args_are_tensors_on_the_device():
 
 @pytest.fixture
 def routed():
-    """Every product above 0 partials goes to the device engines."""
+    """Every product above 0 partials goes to the device engines (the cost
+    model prices the device at nothing)."""
     saved = tsmm.get_config()
-    tsmm.set_config(host_compute_limit=0)
+    tsmm.set_config(host_compute_limit=0, auto_calibrate_link=False, link_fixed_s=1e-9,
+                    link_up_bytes_per_s=1e15, link_down_bytes_per_s=1e15, host_rate_base=1.0)
     yield
     tsmm.set_config(saved)
 

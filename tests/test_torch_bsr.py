@@ -700,9 +700,11 @@ def test_bsr_route_follows_config(config):
     assert api._bsr_route_ok(a, "cuda") and api._bsr_route_ok(a, "cpu")
 
 
-def test_dense_operands_keep_the_dense_route():
+def test_dense_operands_keep_the_dense_route(config):
     """Uniformly sparse operands (the headline's kind) never take the BSR
-    route unless it is forced."""
+    route unless it is forced (the cost model priced off the host)."""
+    tsmm.set_config(auto_calibrate_link=False, link_fixed_s=1e-9, link_up_bytes_per_s=1e15,
+                    link_down_bytes_per_s=1e15, host_rate_base=1.0)
     a = sp.random(600, 600, density=0.3, format="csr", random_state=1)
     b = sp.random(600, 600, density=0.3, format="csr", random_state=2)
     tsmm.sparse_matrix_multiply(a, b, symmetric=True, device="cpu")

@@ -36,6 +36,17 @@ def cuda():
     return torch.device("cuda")
 
 
+@pytest.fixture
+def on_device():
+    """The cost model priced off, so sparse_matrix_multiply keeps the device
+    routes these tests assert; the configuration restored afterwards."""
+    saved = tsmm.get_config()
+    tsmm.set_config(auto_calibrate_link=False, link_fixed_s=1e-9, link_up_bytes_per_s=1e15,
+                    link_down_bytes_per_s=1e15, host_rate_base=1.0)
+    yield
+    tsmm.set_config(saved)
+
+
 def _random(m, n, density, seed, dtype, device):
     """Values of both signs: the extraction keeps every nonzero, not only positives."""
     a = sp.random(m, n, density=density, format="csr", random_state=seed)
@@ -301,7 +312,7 @@ def test_precision_policies_ignore_global_tf32(cuda, tf32_on, precision, symmetr
                                rtol=1e-5, atol=1e-8)
 
 
-def test_symmetric_multiply_on_the_card(cuda):
+def test_symmetric_multiply_on_the_card(cuda, on_device):
     """The public entry point on the card, at a size where the product goes
     through K3, K1 and K2, against scipy at the reference tolerance."""
     a = sp.random(2500, 2500, density=0.1, format="csr", random_state=4)
@@ -809,7 +820,7 @@ def test_triple_product_on_the_card(cuda, precision, compute_full_matrix):
     assert bool(((got - want).abs() <= bound).all())
 
 
-def test_triple_route_on_the_card(cuda):
+def test_triple_route_on_the_card(cuda, on_device):
     """sparse_matrix_multiply(use_triple_product=True) takes route "triple"
     through K3 twice and K1, against scipy at the reference tolerance."""
     h = sp.random(1500, 1200, density=0.05, format="csr", random_state=16)
@@ -971,7 +982,7 @@ def test_esc_engines_host_syncs(cuda, engine, syncs):
     ("esc_chunks", dict(dense_path_limit=1000, esc_expand_limit=4000, binned_expand_limit=4000)),
     ("dense_chunks", dict(dense_path_limit=150_000, esc_expand_limit=8, binned_expand_limit=8)),
 ])
-def test_sparse_output_ladder_on_the_card(cuda, route, limits):
+def test_sparse_output_ladder_on_the_card(cuda, on_device, route, limits):
     """Each rung through sparse_matrix_multiply on the card: the route, and
     identical structure with values in the oracle against scipy (non-negative
     operands: no cancellation)."""

@@ -2,8 +2,8 @@
 the JAX package, on the CPU in f64, each rung forced by shrunken limits (as
 ``tests/test_large_sparse.py`` does for JAX).
 
-JAX is pinned off its host cost model (the port has none): the host rung
-only below ``host_compute_limit``, here 0.  For every input the route label,
+Both packages are pinned off their host cost model: the host rung only
+below ``host_compute_limit``, here 0.  For every input the route label,
 ``get_last_route_detail()["chunks"]`` and the structure equal JAX's, and the
 values agree to summation order.
 """
@@ -24,15 +24,15 @@ TOL = dict(rtol=1e-12, atol=1e-12)
 
 @pytest.fixture
 def limits():
-    """Set the same limits in both packages (JAX also pinned off its cost
+    """Set the same limits in both packages (both pinned off their cost
     model), and restore both configurations afterwards."""
     saved_t, saved_j = tsmm.get_config(), jsmm.get_config()
+    on_device = dict(host_compute_limit=0, auto_calibrate_link=False, link_fixed_s=1e-9,
+                     link_up_bytes_per_s=1e15, link_down_bytes_per_s=1e15, host_rate_base=1.0)
 
     def set_both(**kw):
-        tsmm.set_config(host_compute_limit=0, **kw)
-        jsmm.set_config(host_compute_limit=0, auto_calibrate_link=False, link_fixed_s=1e-9,
-                        link_up_bytes_per_s=1e15, link_down_bytes_per_s=1e15,
-                        host_rate_base=1.0, **kw)
+        tsmm.set_config(**on_device, **kw)
+        jsmm.set_config(**on_device, **kw)
 
     yield set_both
     tsmm.set_config(saved_t)

@@ -26,6 +26,8 @@ def test_import_leaves_jax_unloaded():
         "import sparse_matrix_mult_tpu_torch.parallel.mesh\n"
         "import sparse_matrix_mult_tpu_torch.parallel.distributed\n"
         "import sparse_matrix_mult_tpu_torch.io\n"
+        "import sparse_matrix_mult_tpu_torch.utils.profiling\n"
+        "import sparse_matrix_mult_tpu_torch.utils.logging\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'sparse_matrix_mult_tpu' or m.startswith('sparse_matrix_mult_tpu.'))\n"
         "assert not bad, bad\n"
@@ -38,13 +40,14 @@ def test_import_leaves_jax_unloaded():
 
 
 def _port_modules():
-    """The port's modules, the script that drives it on the card and the
-    tools that run it there."""
+    """The port's modules, the script that drives it on the card, the tools
+    that run it there and its demo."""
     for dirpath, _, files in os.walk(PORT):
         for f in files:
             if f.endswith(".py"):
                 yield os.path.join(dirpath, f)
     yield os.path.join(ROOT, "chip_smoke.py")
+    yield os.path.join(ROOT, "examples", "demo_torch.py")
     tools = os.path.join(ROOT, "tools")
     yield from (os.path.join(tools, f) for f in os.listdir(tools) if f.endswith(".py"))
 
@@ -69,5 +72,7 @@ def test_the_scan_covers_the_sparse_output_modules():
     scanned = {os.path.relpath(p, ROOT) for p in _port_modules()}
     for module in ("ops/spgemm_esc.py", "ops/spgemm_binned.py", "utils/testing.py",
                    "utils/native.py", "api.py", "parallel/partition.py", "parallel/mesh.py",
-                   "parallel/distributed.py", "io.py"):
+                   "parallel/distributed.py", "io.py", "utils/profiling.py",
+                   "utils/logging.py", "utils/__init__.py"):
         assert os.path.join("sparse_matrix_mult_tpu_torch", module) in scanned, module
+    assert os.path.join("examples", "demo_torch.py") in scanned

@@ -84,8 +84,8 @@ def test_every_policy_is_native_f64_on_the_cpu(precision):
 @pytest.mark.parametrize("m,n,d", SHAPES)
 def test_sparse_matrix_multiply_equals_jax_and_scipy(m, n, d, compute_full_matrix, route, config):
     h, q = _operands(m, n, d, 5)
-    if route == "triple":  # past the host limit; the JAX cost model must not send it back
-        tsmm.set_config(host_compute_limit=0)
+    if route == "triple":  # past the host limit; neither cost model may send it back
+        tsmm.set_config(host_compute_limit=0, auto_calibrate_link=False, host_rate_base=1e-3)
         jsmm.set_config(host_compute_limit=0, auto_calibrate_link=False, host_rate_base=1e-3)
     kw = dict(use_triple_product=True, compute_full_matrix=compute_full_matrix)
     got = tsmm.sparse_matrix_multiply(h, q, device="cpu", **kw)
@@ -99,7 +99,7 @@ def test_sparse_matrix_multiply_equals_jax_and_scipy(m, n, d, compute_full_matri
 
 def test_output_format_is_ignored(config):
     h, q = _operands(40, 40, 0.2, 7)
-    tsmm.set_config(host_compute_limit=0)
+    tsmm.set_config(host_compute_limit=0, auto_calibrate_link=False, host_rate_base=1e-3)
     got = tsmm.sparse_matrix_multiply(h, q, output_format="sparse", use_triple_product=True,
                                       device="cpu")
     assert isinstance(got, np.ndarray)
