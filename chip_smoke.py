@@ -55,19 +55,24 @@ Phases, one line each:
                 each one's splits, K6's run check and each GEMM timed in one
                 window;
   8. bsr-main -- the BSR path: four requests through sparse_matrix_multiply
-                with block-sparse A, counts zeroed just before and read just
-                after: A x B (K6), symmetric (K6, K2), A x uniform B_u (K3,
+                with block-sparse A and the route named (force_bsr: on the
+                H100 the router itself sends them to the dense route),
+                counts zeroed just before and read just after: A x B (K6), symmetric (K6, K2), A x uniform B_u (K3,
                 split_bf16 x2, K5) and dense output (K6); each K6 request
                 splits twice and checks its pair tables once.  Route "bsr",
                 launches per request, and each result against an f64 oracle
                 on the card;
-  9. bsr-timing -- requests 1 and 3 end to end on the BSR route and, with
-                use_bsr=False, on the dense route, warm, min of 3; and
-                request 1's time per stage;
+  9. bsr-timing -- requests 1 and 3 end to end on the BSR route
+                (force_bsr) and as the router decides (the dense route),
+                warm, min of 3; and request 1's time per stage;
      bsr-crossover -- request 1's form (A x B, sparse output) with A at
-                block occupancies 0.02, 0.05, 0.10 and 0.25 (B the 10% one),
-                end to end on the BSR route (force_bsr) and on the dense
-                route (use_bsr=False), min of 3 each;
+                block occupancies 0.002-0.25 at 8192^2 and 0.002 and 0.005
+                at 16,384^2 (B the 10% one of each size), end to end on the
+                BSR route (force_bsr) and on the dense route (use_bsr=False),
+                min of 3 each (1 where the warm call took over 0.5 s), and
+                the cutoff that gives (the largest
+                occupancy at which the BSR route wins; 0 where it wins at
+                none) beside Config.cuda_bsr_occupancy_cutoff;
  10. fused-kernels -- the fused conversions' path, counted: K7
                 (dense_to_csr_fused) on the 12,288^2 sibling product and the
                 full 10k headline product, K8 (csr_to_dense_fused) on the
@@ -96,9 +101,9 @@ Phases, one line each:
  13. esc-main -- the sparse-output ladder below the dense route: six
                 requests through sparse_matrix_multiply on hypersparse
                 operands (non-negative values), counted, each route checked:
-                (a) 200,000^2 with nnz 2e6 per operand, plain and symmetric
-                ("esc_binned"), (b) the same with use_binned_esc=False and
-                esc_expand_limit 2^25 ("esc_windowed"), (c) 40,000 x 50,000
+                (a) 200,000^2 with nnz 2e6 per operand, plain and symmetric,
+                with binned_esc_on_cuda ("esc_binned"), (b) the same as the
+                router takes it on CUDA ("esc_windowed"), (c) 40,000 x 50,000
                 with one entry per row times 50,000^2 at d = 0.002 ("esc"),
                 (d) 1,000,000^2 with nnz 7e6 per operand ("esc_chunks", its
                 chunk count shown), (e) 30,000 x 10,000 at d = 0.002 times
@@ -147,22 +152,39 @@ Phases, one line each:
                 and the single-device port on the same products.  Then one
                 JSON line {"dist": ...}.
  20. cost-model -- the router's host/device cost model (api._route_costs)
-                re-fitted on this host and link: the calibrated link terms
-                beside a directly timed 200 MiB pageable download and upload;
-                spgemm_host partials/s at reuse ~1, ~10 and ~100 and the
-                least-squares host_rate_base of the sqrt(reuse) model;
-                dense_pack's rate on the 12,288^2 panel; then [cost-sweep],
-                one line per request (five sparse, two dense, two triple):
-                the model's estimates and pick, the host route, the device
-                route and the model's route, warm, min of 3, whether the
-                pick was the faster, each result against scipy at the
-                oracle, K1-K4 launched over the sweep; then (demo)
-                examples/demo_torch.py on the card, every line [ok].  The
-                counted requests of phases 4, 8, 11 and 13 print the model's
-                est_host/est_dev; one the model would send to the host is
-                pinned on its device route (ON_DEVICE) and named.  The link
-                is calibrated once before phase 4, so no first-call time
-                includes it.  Then one JSON line {"cost_model": ...}.
+                fitted on this host and link: the first writes of 64 and
+                128 MiB host arrays (host_page_rate, which the other rates
+                are net of); spgemm_host at reuse ~1, ~10 and ~100 (JAX's
+                sqrt(reuse) host_rate_base and the CUDA model's
+                host_partial_rate and host_entry_rate) and at two products
+                whose output passes the mmap threshold
+                (host_out_page_rate); the windowed engine
+                on the card and from_scipy's uploads; the other host-work
+                rates of the CUDA model, each on its own fit points
+                (to_scipy and the cast, the window plan, the full
+                triangle's index rebuild, f64 panels, csr_matrix of a small
+                panel, scipy's triple, dense_pack, the staging copy of 64
+                and 128 MiB downloads), each with its residuals; the link
+                probe in a fresh process (this script with
+                --cold-cost-model: the cold run) and here (warm), each
+                beside a directly timed 200 MiB pageable download and
+                upload; then [cost-sweep], one line per request (nine
+                and six held out): the model's estimates and pick
+                under this run's fit, the cold run's pick (the same fit)
+                and the committed defaults' pick beside it, the host route,
+                the device route and the model's route, warm, min of 3 (1
+                where the warm call took over 0.5 s), the pick wrong only
+                where the other route is faster by more than 1.15x, each
+                result against scipy at the oracle, K1-K4 launched over the
+                sweep; whether both runs made the same picks, the probes'
+                ratio, request (a) as the model decides against the faster
+                forced route; then (demo) examples/demo_torch.py on the
+                card, every line [ok].  The counted requests of phases 4, 8,
+                11 and 13 print the model's est_host/est_dev; one the model
+                would send to the host is pinned on its device route
+                (ON_DEVICE) and named.  The link is calibrated once before
+                phase 4, so no first-call time includes it.  Then one JSON
+                line {"cost_model": ...}.
 
 Then a JSON line of the kernels (launches summed over the eleven counted paths;
 K2, K3 and K4 also by shape: each product or operand of a counted request is
@@ -215,7 +237,11 @@ SIB_N, SIB_DENSITY = 12_288, 0.006  # dense route, ~36% dense product
 # (8192^2, 128^2 blocks, 10% occupied, dense standard-normal blocks), and a
 # uniformly sparse B_u whose every block is occupied.
 BSR_N, BSR_BLOCK, BSR_OCC, BSR_SEEDS = 8192, 128, 0.10, (21, 22)
-CROSSOVER_OCCS = (0.02, 0.05, 0.10, 0.25)  # A's block occupancies of the crossover phase
+# A's block occupancies of the crossover phase, by size (B the BSR_OCC one
+# of the same size): the cutoff of the BSR route on CUDA is the largest at
+# which the route wins end to end.
+CROSSOVER_OCCS = ((BSR_N, (0.002, 0.005, 0.01, 0.02, 0.05, 0.10, 0.25)),
+                  (2 * BSR_N, (0.002, 0.005)))
 BU_DENSITY, BU_SEED = 0.01, 23
 FUSED_LANES = (2048, 8192, 16384)  # K7 must give the same output at each
 TRIPLE_Q_SEED = 3  # Q of the triple product: N^2, DENSITY (benchmarks/run.py:275-277)
@@ -225,8 +251,8 @@ INV_TOL = 1e-3  # |got - ref|_inf <= INV_TOL * |ref|_inf, float32 against the f6
 RTOL, ATOL = 1e-5, 1e-8  # the reference's oracle tolerance
 # The sparse-output ladder (phases 13-14), each request's operands from
 # hypersparse_random.  (a) 200,000^2, nnz 2e6 each (benchmarks/run.py:305-308):
-# ~2e7 partials, "esc_binned"; (b) the same with use_binned_esc=False and
-# esc_expand_limit raised to ESC_WINDOWED_LIMIT: "esc_windowed"; (c) one
+# ~2e7 partials, "esc_binned" (named: BINNED); (b) the same as the router
+# takes it on CUDA: "esc_windowed"; (c) one
 # entry per row of a 40,000 x 50,000 A times B 50,000^2 at d = 0.002 (~4e6
 # partials, B rows of ~100 entries: no window qualifies): "esc"; (d)
 # 1,000,000^2, nnz 7e6 each (~4.9e7 partials, past the binned budget):
@@ -235,7 +261,6 @@ RTOL, ATOL = 1e-5, 1e-8  # the reference's oracle tolerance
 # Device-resident timing also at 1,000,000^2, d = 1e-5 (~1e8 partials, the
 # single_chip row of benchmarks/results_large_sparse_cpu.json).
 ESC_N, ESC_NNZ, ESC_SEEDS = 200_000, 2_000_000, (11, 12)
-ESC_WINDOWED_LIMIT = 1 << 25
 CLASSIC_M, CLASSIC_K, CLASSIC_B_NNZ, CLASSIC_SEEDS = 40_000, 50_000, 5_000_000, (13, 14)
 CHUNKS_N, CHUNKS_NNZ, CHUNKS_SEEDS = 1_000_000, 7_000_000, (15, 16)
 DCHUNKS_M, DCHUNKS_K, DCHUNKS_A_NNZ, DCHUNKS_B_NNZ = 30_000, 10_000, 600_000, 1_000_000
@@ -305,6 +330,9 @@ MAIN_REQUESTS = (
 )
 
 # The BSR path's requests: (label, B operand, keywords, kernels it must launch).
+# Each names its route (BSR_ROUTE): on the H100 the router sends block-sparse
+# operands to the dense route (Config.cuda_bsr_occupancy_cutoff 0).
+BSR_ROUTE = dict(force_bsr=True)
 K6_PATH = ("split_bf16", "bsr_pair_runs", "bsr_bsr_matmul_dense")  # a K6 call's kernels
 BSR_REQUESTS = (
     ("bsr_x_bsr_8192", "b", dict(), K6_PATH),
@@ -315,11 +343,12 @@ BSR_REQUESTS = (
 
 
 # The ladder's requests: (label, operands, keywords, Config keywords, route).
+# On CUDA the binned rung runs only when named (BINNED); (b) is the default.
+BINNED = dict(binned_esc_on_cuda=True)
 ESC_REQUESTS = (
-    ("esc_binned_a", "esc", dict(), dict(), "esc_binned"),
-    ("esc_binned_symmetric_a", "esc", dict(symmetric=True), dict(), "esc_binned"),
-    ("esc_windowed_b", "esc", dict(), dict(use_binned_esc=False, esc_expand_limit=ESC_WINDOWED_LIMIT),
-     "esc_windowed"),
+    ("esc_binned_a", "esc", dict(), BINNED, "esc_binned"),
+    ("esc_binned_symmetric_a", "esc", dict(symmetric=True), BINNED, "esc_binned"),
+    ("esc_windowed_b", "esc", dict(), dict(), "esc_windowed"),
     ("esc_classic_c", "classic", dict(), dict(use_binned_esc=False), "esc"),
     ("esc_chunks_d", "chunks", dict(), dict(), "esc_chunks"),
     ("dense_chunks_e", "dchunks", dict(), dict(), "dense_chunks"),
@@ -529,10 +558,12 @@ def same_csr(got, ref, what: str) -> float:
     return float(np.abs(got.data - ref.data).max()) if got.nnz else 0.0
 
 
-def block_sparse(seed: int, occ: float = BSR_OCC):
-    """BSR_N^2 scipy CSR with ``occ`` of its BSR_BLOCK^2 blocks occupied, each
-    dense with standard-normal f32 values (benchmarks/run.py:579-596)."""
-    nb = BSR_N // BSR_BLOCK
+def block_sparse(seed: int, occ: float = BSR_OCC, n: int | None = None):
+    """n^2 (default BSR_N^2) scipy CSR with ``occ`` of its BSR_BLOCK^2 blocks
+    occupied, each dense with standard-normal f32 values
+    (benchmarks/run.py:579-596)."""
+    n = n or BSR_N
+    nb = n // BSR_BLOCK
     r = np.random.default_rng(seed)
     bi, bj = np.nonzero(r.random((nb, nb)) < occ)
     blocks = r.standard_normal((len(bi), BSR_BLOCK, BSR_BLOCK)).astype(np.float32)
@@ -541,7 +572,7 @@ def block_sparse(seed: int, occ: float = BSR_OCC):
                            shape3).ravel()
     cols = np.broadcast_to(bj[:, None, None] * BSR_BLOCK + np.arange(BSR_BLOCK)[None, None, :],
                            shape3).ravel()
-    return sp.coo_matrix((blocks.ravel(), (rows, cols)), shape=(BSR_N, BSR_N)).tocsr()
+    return sp.coo_matrix((blocks.ravel(), (rows, cols)), shape=(n, n)).tocsr()
 
 
 def abs_bsr(m):
@@ -677,7 +708,9 @@ def bsr_stage_times(a_sp, b_sp):
     bsz = smt.get_config().block_size
 
     def occupancies():
-        return api._bsr_route_ok(a_sp, DEVICE), api.block_occupancy(b_sp, bsz)
+        with config_set(**BSR_ROUTE):
+            return api._bsr_route_ok(a_sp, DEVICE), api._block_sparse(
+                b_sp, bsz, smt.get_config().bsr_occupancy_cutoff)
 
     def plan():
         bs_a, bs_b = _tobsr_padded(a_sp, bsz), _tobsr_padded(b_sp, bsz)
@@ -691,7 +724,7 @@ def bsr_stage_times(a_sp, b_sp):
         return a, b, tables, torch.from_numpy(p["mask"]).to(DEVICE)
 
     for _ in range(PATH_RUNS + 1):
-        timed(best, "occupancy_scans_a_b", occupancies)
+        timed(best, "route_check_a_occupancy_scan_b", occupancies)
         bs_a, bs_b, p = timed(best, "tobsr_a_b_and_pair_plan", plan)
         a, b, tables, mask = timed(best, "upload_blocks_and_plan", lambda: upload(bs_a, bs_b, p))
         c = timed(best, "product_k6", lambda: kb.bsr_bsr_matmul_dense(a, b, *tables, mask))
@@ -864,34 +897,43 @@ def bsr_kernels(a_sp, b_sp, bu_sp) -> dict:
 
 
 def bsr_crossover(b_sp) -> list:
-    """Request 1's form, A x B with B the 10% one, at each of CROSSOVER_OCCS
-    for A (block_sparse's generator, seed BSR_SEEDS[0]): end to end on the
-    BSR route (force_bsr) and on the dense route (use_bsr=False), min of
-    PATH_RUNS each; the BSR route's product kernel, and the same nnz on both."""
+    """Request 1's form, A x B (A from block_sparse's generator, seed
+    BSR_SEEDS[0]; B the BSR_OCC one, ``b_sp`` at BSR_N), at each size and A
+    occupancy of CROSSOVER_OCCS: end to end on the BSR route (force_bsr) and
+    on the dense route (use_bsr=False), min of PATH_RUNS each; the BSR
+    route's product kernel, and the same nnz on both."""
     rows = []
     bsz = smt.get_config().block_size
-    for occ in CROSSOVER_OCCS:
-        a_sp = block_sparse(BSR_SEEDS[0], occ)
-        plan = kb.bsr_pair_plan(a_sp, b_sp, bsz)
-        row = dict(occupancy=api.block_occupancy(a_sp, bsz),
-                   pairs=0 if plan is None else plan["n_pairs"])
-        nnz = {}
-        for route, cfg in (("bsr", dict(force_bsr=True)), ("dense", dict(use_bsr=False))):
-            saved = smt.get_config()
-            smt.set_config(**cfg)
-            try:
-                before = dict(LAUNCHES)
-                row[route] = wall_s(lambda: smt.sparse_matrix_multiply(a_sp, b_sp))
-                require(smt.get_last_route() == route, f"crossover at {occ}: not route {route!r}")
-                nnz[route] = smt.sparse_matrix_multiply(a_sp, b_sp).nnz
-                if route == "bsr":
-                    row["kernel"] = ("K6" if LAUNCHES["bsr_bsr_matmul_dense"]
-                                     > before["bsr_bsr_matmul_dense"] else "K5")
-            finally:
-                smt.set_config(saved)
-        require(nnz["bsr"] == nnz["dense"], f"crossover at {occ}: nnz differs between the routes")
-        rows.append(row)
+    for n, occs in CROSSOVER_OCCS:
+        b_n = b_sp if n == BSR_N else block_sparse(BSR_SEEDS[1], BSR_OCC, n)
+        for occ in occs:
+            a_sp = block_sparse(BSR_SEEDS[0], occ, n)
+            plan = kb.bsr_pair_plan(a_sp, b_n, bsz)
+            row = dict(n=n, occupancy=api.block_occupancy(a_sp, bsz),
+                       pairs=0 if plan is None else plan["n_pairs"])
+            nnz = {}
+            for route, cfg in (("bsr", dict(force_bsr=True)), ("dense", dict(use_bsr=False))):
+                with config_set(**cfg):
+                    before = dict(LAUNCHES)
+                    row[route], got, taken = best_call(
+                        lambda: smt.sparse_matrix_multiply(a_sp, b_n))
+                    require(taken == route, f"crossover at {n}^2, {occ}: not route {route!r}")
+                    nnz[route] = got.nnz
+                    del got
+                    if route == "bsr":
+                        row["kernel"] = ("K6" if LAUNCHES["bsr_bsr_matmul_dense"]
+                                         > before["bsr_bsr_matmul_dense"] else "K5")
+            require(nnz["bsr"] == nnz["dense"], f"crossover at {n}^2, {occ}: nnz differs")
+            rows.append(row)
+            del a_sp
+        del b_n
     return rows
+
+
+def crossover_cutoff(rows) -> float:
+    """The largest measured A occupancy at which the BSR route wins end to
+    end, or 0 where it wins at none."""
+    return max([r["occupancy"] for r in rows if r["bsr"] < r["dense"]], default=0.0)
 
 
 def uniform_bu():
@@ -960,23 +1002,17 @@ def counted(calls, results):
 # The cost model priced off (the port's tests do the same): every request past
 # host_compute_limit keeps its device route.
 ON_DEVICE = dict(auto_calibrate_link=False, link_fixed_s=1e-9, link_up_bytes_per_s=1e15,
-                 link_down_bytes_per_s=1e15, host_rate_base=1.0)
+                 link_down_bytes_per_s=1e15, host_rate_base=1.0, host_partial_rate=1.0,
+                 scipy_partial_rate=1.0)
 # (est_host, est_dev) of each counted request, by label, and the labels whose
 # device route had to be pinned because the cost model would take the host.
 MODEL_ESTIMATES, MODEL_PINNED = {}, []
 
 
-def model_costs(a_sp, b_sp, output_format="sparse", use_triple_product=False, **_):
+def model_costs(a_sp, b_sp, **kw):
     """(est_host, est_dev) seconds the router's cost model gives a request
-    (api._route_costs with the branch's expansion and download)."""
-    a_sp, b_sp = api._coerce_csr(a_sp), api._coerce_csr(b_sp)
-    expand = expansion_size(a_sp.indices, a_sp.nnz, b_sp.indptr)
-    val_bytes = api._value_bytes(a_sp, b_sp, DEVICE)
-    if use_triple_product:
-        return api._route_costs(2 * expand, a_sp, b_sp, DEVICE,
-                                out_bytes=val_bytes * a_sp.shape[0] ** 2)
-    out_bytes = val_bytes * a_sp.shape[0] * b_sp.shape[1] if output_format == "dense" else None
-    return api._route_costs(expand, a_sp, b_sp, DEVICE, out_bytes)
+    (api._request_costs: the branch's expansion, download and device route)."""
+    return api._request_costs(a_sp, b_sp, DEVICE, **kw)
 
 
 def model_pin(label, a_sp, b_sp, **kw) -> dict:
@@ -1006,13 +1042,14 @@ def model_note(labels) -> str:
                else "every request on the device by the model"))
 
 
-def request(label, a_sp, b_sp, **kw):
-    """A call for :func:`counted`: sparse_matrix_multiply and its route,
-    the cost model pinned where it would take the host (:func:`model_pin`)."""
+def request(label, a_sp, b_sp, cfg=None, **kw):
+    """A call for :func:`counted`: sparse_matrix_multiply under ``cfg`` and
+    its route, the cost model pinned where it would take the host
+    (:func:`model_pin`)."""
     pin = model_pin(label, a_sp, b_sp, **kw)
 
     def call(_):
-        with config_set(**pin):
+        with config_set(**(cfg or {}), **pin):
             return smt.sparse_matrix_multiply(a_sp, b_sp, **kw), smt.get_last_route()
     return call
 
@@ -1471,14 +1508,13 @@ def esc_main_phase(ops: dict):
         nnz[label] = answers[label][0].nnz
     del refs
     kept = {label: answers[label][0] for label in TIMED_ESC}
-    with config_set(**pinned_like("esc_binned_a")):
+    with config_set(**BINNED, **pinned_like("esc_binned_a")):
         again = smt.sparse_matrix_multiply(*ops["esc"])
     same_bits(again, kept["esc_binned_a"], "esc_binned_a")
     del answers, again
     phase("esc-main", t0, " | ".join(
         [f"{label} ({route}{', ' + str(details[label]) if details[label] else ''}"
-         f"{', esc_expand_limit ' + str(cfg['esc_expand_limit']) if 'esc_expand_limit' in cfg else ''}"
-         f"{', use_binned_esc False' if cfg.get('use_binned_esc') is False else ''}): "
+         f"{''.join(f', {key} {value}' for key, value in cfg.items())}): "
          f"nnz {nnz[label]}, max abs err vs scipy {errs[label]:.2e}, first call "
          f"{seconds[label]:.3f} s" for label, _, _, cfg, route in ESC_REQUESTS]
         + ["esc_binned_a twice: the same bits",
@@ -2105,21 +2141,47 @@ def dist_phases(a_sp, b_sp, esc_pair, name: str, smi: str) -> dict:
 # three branches, and the port's demo on the card.
 # ---------------------------------------------------------------------------
 
-LINK_BYTES = 200 << 20  # the directly timed pageable transfer beside the 2 MiB probe
+LINK_BYTES = 200 << 20  # the directly timed pageable transfer beside the probe
+# The sizes of the copies (host_copy_rate) and first writes (host_page_rate).
+COPY_POINTS = (64 << 20, 128 << 20)
+PICK_MARGIN = 1.15  # a pick is wrong only where the other route is faster by more than this
+SLOW_CALL_S = 0.5  # a sweep call slower than this is timed once after its warm call
 # spgemm_host partials/s at rising reuse (partials per output entry), each
 # operand pair: (label, kind, n, nnz or density, seeds).  reuse ~1: two
 # hypersparse_random operands; ~10 and ~100: sp.random at rising density.
+# Every output here stays under the mmap threshold (no fresh pages).
 HOST_RATE_POINTS = (
-    ("hyper_100k_reuse1", "hyper", 100_000, 1_000_000, (61, 62)),
+    ("hyper_90k_reuse1", "hyper", 90_000, 360_000, (117, 118)),
     ("random_1000_d0.1_reuse10", "random", 1000, 0.1, (63, 64)),
     ("random_1000_d0.316_reuse100", "random", 1000, 0.316, (65, 66)),
 )
+# spgemm_host's outputs past the threshold (host_out_page_rate): these
+# products' times net of the work terms fitted on HOST_RATE_POINTS.
+OUT_PAGE_POINTS = (("hyper_100k_reuse1", "hyper", 100_000, 1_000_000, (61, 62)),
+                   ("hyper_150k", "hyper", 150_000, 1_500_000, (89, 90)))
+# The fit points of the other host-work rates of the CUDA cost model (none
+# of them a COST_SWEEP request): the products whose packed result to_scipy
+# converts and whose window plan is timed; the full triangles whose indices
+# _fetch_full_triu rebuilds; the f32 panel cast to f64 and the product
+# toarray and np.triu write; the small panels csr_matrix packs; the triples
+# whose (H Q) H^T scipy multiplies.
+CSR_POINTS = OUT_PAGE_POINTS
+# The windowed engine on the card and the uploads: these and a small pair.
+ENGINE_POINTS = CSR_POINTS + (("hyper_30k", "hyper", 30_000, 120_000, (111, 112)),)
+TRIU_POINTS = (4000, 6000)
+F64_PANEL, F64_PRODUCT = 6000, ("random_4096_d0.005", "random", 4096, 0.005, (91, 92))
+DENSE_CSR_POINTS = (("random_2048_d0.02", "random", 2048, 0.02, (93, 94)),
+                    ("random_1024_d0.03", "random", 1024, 0.03, (95, 96)))
+SCIPY_POINTS = (("random_1500_d0.02", "random", 1500, 0.02, (97, 98)),
+                ("random_1200_d0.03", "random", 1200, 0.03, (99, 100)))
 # The crossover sweep: (label, kind, n, nnz or density, seeds, keywords),
-# expansions 8e5 ... 5.6e7 on the sparse branch, two dense-output and two
-# triple requests (H, Q both n^2).  Their device routes launch K1-K4:
-# sparse_random_3000 is extracted by K4, sparse_random_2500_symmetric (~63%
-# of its triangle filled: packed CSR is the smaller download) by K2 after K3
-# and K1, dense_random_3000_symmetric runs K1, the triples K3 x2 and K1.
+# expansions 8e5 ... 5.6e7 on the sparse branch, two dense-output and three
+# triple requests (H, Q both n^2); the last four are held out (HELD_OUT: the
+# sweep was not looked at when the rates were chosen).  Their device routes
+# launch K1-K4: sparse_random_3000 is extracted by K4,
+# sparse_random_2500_symmetric (~63% of its triangle filled: packed CSR is
+# the smaller download) by K2 after K3 and K1, dense_random_3000_symmetric
+# runs K1, the triples K3 x2 and K1.
 COST_SWEEP = (
     ("sparse_hyper_50k", "hyper", 50_000, 200_000, (67, 68), dict()),
     ("sparse_random_3000", "random", 3000, 0.01, (69, 70), dict()),
@@ -2132,22 +2194,39 @@ COST_SWEEP = (
     ("triple_random_2000", "random", 2000, 0.01, (77, 78), dict(use_triple_product=True)),
     ("triple_random_2500_full", "random", 2500, 0.01, (79, 80),
      dict(use_triple_product=True, compute_full_matrix=1)),
+    ("sparse_hyper_120k", "hyper", 120_000, 1_200_000, (101, 102), dict()),
+    ("sparse_classic_c", "classic", CLASSIC_M, CLASSIC_B_NNZ, CLASSIC_SEEDS, dict()),  # (c)
+    ("sparse_random_1800", "random", 1800, 0.02, (103, 104), dict()),
+    ("triple_random_4000_full", "random", 4000, 0.01, (105, 106),
+     dict(use_triple_product=True, compute_full_matrix=1)),
+    ("sparse_hyper_70k", "hyper", 70_000, 350_000, (113, 114), dict()),
+    ("sparse_random_4000_symmetric", "random", 4000, 0.01, (115, 116), dict(symmetric=True)),
 )
+HELD_OUT = {"sparse_hyper_120k", "sparse_classic_c", "sparse_random_1800",
+            "triple_random_4000_full", "sparse_hyper_70k", "sparse_random_4000_symmetric"}
 HOST_ROUTE = dict(host_compute_limit=1 << 62)  # every request to spgemm_host / scipy
 DEVICE_ROUTE = dict(host_compute_limit=0, **ON_DEVICE)  # as the port's tests force it
+COLD_FLAG = "--cold-cost-model"  # the fresh process of phase 20 (cold_picks)
 
 
 def cost_operands(kind: str, n: int, size, seeds):
     if kind == "hyper":
         return hyper_pair(n, n, n, size, size, seeds)
+    if kind == "classic":  # request (c): one entry per row of A, n x CLASSIC_K
+        return (one_per_row(n, CLASSIC_K, seeds[0]),
+                hypersparse_random(CLASSIC_K, CLASSIC_K, size, seeds[1]))
     return operands(n, size, seeds)
 
 
 def best_call(fn, runs: int = PATH_RUNS):
     """Warm, then the minimum over ``runs`` host-clock seconds of ``fn``
-    (synchronised): (seconds, the last result, its route)."""
+    (synchronised; one run where the warm call took over SLOW_CALL_S, which
+    is no near-tie): (seconds, the last result, its route)."""
+    t0 = time.perf_counter()
     got = fn()
     torch.cuda.synchronize()
+    if time.perf_counter() - t0 > SLOW_CALL_S:
+        runs = 1
     best = float("inf")
     for _ in range(runs):
         t0 = time.perf_counter()
@@ -2157,9 +2236,22 @@ def best_call(fn, runs: int = PATH_RUNS):
     return best, got, smt.get_last_route()
 
 
+def host_s(fn, runs: int = PATH_RUNS) -> float:
+    """Warm, then the least host-clock seconds of ``fn`` over ``runs`` calls
+    (host work only: no device synchronisation)."""
+    fn()
+    best = float("inf")
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        fn()
+        best = min(best, time.perf_counter() - t0)
+    return best
+
+
 def link_phase() -> dict:
     """The calibrated link terms beside directly timed LINK_BYTES pageable
-    transfers, and what the probe's terms predict for them."""
+    transfers, and what the probe's terms predict for them (the download
+    with its staging copy and fresh pages at the configured rates)."""
     t0 = time.perf_counter()
     terms = dict(api._calibrate_link(DEVICE))
     calibrate_s = time.perf_counter() - t0
@@ -2168,7 +2260,10 @@ def link_phase() -> dict:
     h = np.ones(LINK_BYTES // 4, np.float32)
     up_s = wall_s(lambda: torch.from_numpy(h).to(DEVICE))
     del x, h
-    predicted_down = terms["link_fixed_s"] + LINK_BYTES / terms["link_down_bytes_per_s"]
+    cfg = smt.get_config()
+    predicted_down = (terms["link_fixed_s"] + LINK_BYTES / terms["link_down_bytes_per_s"]
+                      + LINK_BYTES / cfg.host_copy_rate
+                      + api._fresh(LINK_BYTES) / cfg.host_page_rate)
     predicted_up = terms["link_fixed_s"] + LINK_BYTES / terms["link_up_bytes_per_s"]
     return dict(calibrated=terms, calibrate_s=calibrate_s, bytes=LINK_BYTES,
                 down_s=down_s, down_bytes_per_s=LINK_BYTES / down_s,
@@ -2177,34 +2272,204 @@ def link_phase() -> dict:
                 up_predicted_s=predicted_up, up_miss=up_s / predicted_up)
 
 
+def link_line(link: dict) -> str:
+    cal = link["calibrated"]
+    return (f"link_fixed_s {cal['link_fixed_s']:.3e}, up {cal['link_up_bytes_per_s']:.4e} B/s, "
+            f"down {cal['link_down_bytes_per_s']:.4e} B/s (probe {link['calibrate_s']:.4f} s); "
+            f"{LINK_BYTES >> 20} MiB pageable, min of {PATH_RUNS}: down {link['down_s']:.4f} s "
+            f"({link['down_bytes_per_s']:.4e} B/s; the probe predicts "
+            f"{link['down_predicted_s']:.4f} s, x{link['down_miss']:.2f}), up {link['up_s']:.4f} s "
+            f"({link['up_bytes_per_s']:.4e} B/s; predicted {link['up_predicted_s']:.4f} s, "
+            f"x{link['up_miss']:.2f})")
+
+
+def rate_fit(points: dict, key: str) -> dict:
+    """The rate of one host-work term: the geometric mean of its points'
+    rates (least squares in log space), each point's relative residual."""
+    rate = float(np.exp(np.mean([np.log(p[key]) for p in points.values()])))
+    return dict(rate=rate, points=points,
+                residuals={label: p[key] / rate - 1.0 for label, p in points.items()})
+
+
 def host_rate_fit() -> dict:
-    """spgemm_host partials/s at each HOST_RATE_POINTS pair (warm, min of
-    PATH_RUNS), and the least-squares host_rate_base of the sqrt(reuse) model
-    in log space (each point's relative residual)."""
+    """spgemm_host at each HOST_RATE_POINTS and OUT_PAGE_POINTS pair (warm,
+    min of PATH_RUNS): on HOST_RATE_POINTS JAX's sqrt(reuse) model's
+    host_rate_base (least squares in log space, the CPU's formula) and the
+    CUDA model's work terms, partials at host_partial_rate and output
+    entries at host_entry_rate (least squares in relative error); on
+    OUT_PAGE_POINTS the fresh pages of the output net of those terms
+    (host_out_page_rate, :func:`rate_fit`); each with its residuals."""
     points = {}
-    for label, kind, n, size, seeds in HOST_RATE_POINTS:
+    for label, kind, n, size, seeds in HOST_RATE_POINTS + OUT_PAGE_POINTS:
         a_sp, b_sp = cost_operands(kind, n, size, seeds)
         expand = expansion_size(a_sp.indices, a_sp.nnz, b_sp.indptr)
         reuse = max(expand / max(api._est_result_nnz(expand, n, n), 1), 1.0)
         seconds, got, _ = best_call(lambda: spgemm_host(a_sp, b_sp, n_partials=expand))
         points[label] = dict(partials=expand, nnz=got.nnz, reuse=reuse, seconds=seconds,
+                             fresh_bytes=api._fresh(4 * got.nnz, 8 * got.nnz),
                              partials_per_s=expand / seconds)
-    logs = [np.log(p["partials_per_s"]) - 0.5 * np.log(p["reuse"]) for p in points.values()]
+        del a_sp, b_sp, got
+    work = {label: points[label] for label, *_ in HOST_RATE_POINTS}
+    require(all(p["fresh_bytes"] == 0 for p in work.values()),
+            "a HOST_RATE_POINTS output passes the mmap threshold")
+    logs = [np.log(p["partials_per_s"]) - 0.5 * np.log(p["reuse"]) for p in work.values()]
     base = float(np.exp(np.mean(logs)))
-    for p in points.values():
+    rows = np.array([[p["partials"], p["nnz"]] for p in work.values()])
+    rows = rows / np.array([p["seconds"] for p in work.values()])[:, None]
+    inv = np.linalg.lstsq(rows, np.ones(len(rows)), rcond=None)[0]
+    require(bool((inv > 0).all()), f"spgemm_host's two-term fit is not positive: {inv}")
+    for p in work.values():
         p["residual"] = p["partials_per_s"] / (base * p["reuse"] ** 0.5) - 1.0
-    return dict(points=points, host_rate_base=base)
+        p["two_term_residual"] = (p["partials"] * inv[0] + p["nnz"] * inv[1]) / p["seconds"] - 1.0
+    pages = {}
+    for label, *_ in OUT_PAGE_POINTS:
+        p = points[label]
+        p["work_s"] = p["partials"] * inv[0] + p["nnz"] * inv[1]
+        p["rate"] = p["fresh_bytes"] / max(p["seconds"] - p["work_s"], 1e-6)
+        pages[label] = p
+    return dict(points=work, host_rate_base=base, host_partial_rate=float(1 / inv[0]),
+                host_entry_rate=float(1 / inv[1]), host_out_page_rate=rate_fit(pages, "rate"))
 
 
-def pack_rate(sa_sp, sb_sp) -> dict:
-    """dense_pack elements/s on the float32 panel the dense route downloads
-    for the SIB_N^2 sibling product (warm, min of PATH_RUNS)."""
+def host_page_fit() -> dict:
+    """host_page_rate: np.ones of each COPY_POINTS size (a fresh array past
+    the mmap threshold each time, warm, min of PATH_RUNS) net of filling a
+    written array of that size (:func:`rate_fit`)."""
+    points = {}
+    for nbytes in COPY_POINTS:
+        written = np.ones(nbytes // 8)
+        fill_s = host_s(lambda: written.fill(2.0))
+        seconds = host_s(lambda: np.ones(nbytes // 8))
+        points[f"ones_{nbytes >> 20}_mib"] = dict(bytes=nbytes, seconds=seconds, fill_s=fill_s,
+                                                  rate=nbytes / max(seconds - fill_s, 1e-6))
+        del written
+    return rate_fit(points, "rate")
+
+
+def host_copy_fit() -> dict:
+    """host_copy_rate: each COPY_POINTS download of a device tensor into
+    written pageable host memory (the CUDA runtime's staging copy, warm, min of
+    PATH_RUNS) net of what the link terms just calibrated predict for it
+    (:func:`rate_fit`)."""
+    terms = api._calibrate_link(DEVICE)
+    points = {}
+    for nbytes in COPY_POINTS:
+        x = torch.ones(nbytes // 4, dtype=torch.float32, device=DEVICE)
+        dst = torch.zeros(nbytes // 4, dtype=torch.float32)
+        seconds = wall_s(lambda: dst.copy_(x))
+        link_s = terms["link_fixed_s"] + nbytes / terms["link_down_bytes_per_s"]
+        points[f"copy_{nbytes >> 20}_mib"] = dict(bytes=nbytes, seconds=seconds, link_s=link_s,
+                                                  rate=nbytes / max(seconds - link_s, 1e-6))
+        del x, dst
+    return rate_fit(points, "rate")
+
+
+def device_work_fit() -> dict:
+    """The ESC engine on the card and the upload's host work, on
+    ENGINE_POINTS (warm, min of PATH_RUNS, host clock and synchronised):
+    the windowed engine device-resident, fitted as esc_fixed_s plus partials
+    at esc_engine_rate (least squares in relative error); from_scipy of each
+    operand to the card net of what the link terms just calibrated predict
+    (host_upload_rate, :func:`rate_fit`)."""
+    terms = api._calibrate_link(DEVICE)
+    engine, upload = {}, {}
+    for label, kind, n, size, seeds in ENGINE_POINTS:
+        a_sp, b_sp = cost_operands(kind, n, size, seeds)
+        expand = expansion_size(a_sp.indices, a_sp.nnz, b_sp.indptr)
+        w, tail = windowed_plan(a_sp.nnz, np.diff(b_sp.indptr)[a_sp.indices], expand)
+        a = smt.from_scipy(a_sp, dtype=torch.float32, device=DEVICE)
+        b = smt.from_scipy(b_sp, dtype=torch.float32, device=DEVICE)
+        cap = smt.bucket_capacity(expand)
+        engine[label] = dict(partials=expand, seconds=wall_s(lambda: smt.multiply(
+            a, b, out_capacity=cap, expand_capacity=cap, window=w,
+            tail_capacity=smt.bucket_capacity(tail) if tail else 0)))
+        entries = a_sp.nnz + b_sp.nnz
+        seconds = wall_s(lambda: (smt.from_scipy(a_sp, dtype=torch.float32, device=DEVICE),
+                                  smt.from_scipy(b_sp, dtype=torch.float32, device=DEVICE)))
+        link_s = 2 * terms["link_fixed_s"] + 8 * entries / terms["link_up_bytes_per_s"]
+        upload[label] = dict(entries=entries, seconds=seconds, link_s=link_s,
+                             rate=entries / max(seconds - link_s, 1e-6))
+        del a, b, a_sp, b_sp
+    rows = np.array([[1.0 / p["seconds"], p["partials"] / p["seconds"]] for p in engine.values()])
+    fixed, inv = np.linalg.lstsq(rows, np.ones(len(rows)), rcond=None)[0]
+    require(fixed > 0 and inv > 0, f"the ESC engine's fit is not positive: {fixed}, {inv}")
+    for p in engine.values():
+        p["residual"] = (fixed + p["partials"] * inv) / p["seconds"] - 1.0
+    return dict(esc_fixed_s=float(fixed), esc_engine_rate=float(1 / inv), engine=engine,
+                host_upload_rate=rate_fit(upload, "rate"))
+
+
+def host_work_fit(sa_sp, sb_sp, page_rate: float) -> dict:
+    """The host-work rates of the CUDA cost model, each on its fit points
+    (host clock, warm, min of PATH_RUNS; :func:`rate_fit`; to_scipy's and
+    the f64 passes' net of their arrays' fresh pages at ``page_rate``), and
+    dense_pack's on the SIB_N^2 sibling panel (host_pack_rate, as JAX prices
+    the pack)."""
+    csr, plan = {}, {}
+    for label, kind, n, size, seeds in CSR_POINTS:
+        a_sp, b_sp = cost_operands(kind, n, size, seeds)
+        expand = expansion_size(a_sp.indices, a_sp.nnz, b_sp.indptr)
+        packed = smt.from_scipy(spgemm_host(a_sp, b_sp), dtype=torch.float32, device="cpu")
+        nnz = int(packed.nnz)
+        csr[label] = dict(entries=nnz, seconds=host_s(lambda: api._to_scipy_f64(packed)))
+        lens = lambda: np.diff(b_sp.indptr)[a_sp.indices]  # noqa: E731
+        plan[label] = dict(a_entries=a_sp.nnz,
+                           seconds=host_s(lambda: windowed_plan(a_sp.nnz, lens(), expand)))
+        csr[label]["rate"] = nnz / max(csr[label]["seconds"] - api._fresh(8 * nnz) / page_rate,
+                                       1e-6)
+        plan[label]["rate"] = a_sp.nnz / plan[label]["seconds"]
+        del a_sp, b_sp, packed
+    triu = {}
+    for m in TRIU_POINTS:
+        indptr = np.concatenate([[0], np.cumsum(np.arange(m, 0, -1, dtype=np.int64))])
+        indptr = indptr.astype(np.int32)
+        values = np.ones(int(indptr[-1]))
+        seconds = host_s(lambda: api._full_triu_csr(values, indptr, m))
+        triu[f"triangle_{m}"] = dict(entries=len(values), seconds=seconds,
+                                     rate=len(values) / seconds)
+        del values
+    f64 = {}
+    panel = np.ones((F64_PANEL, F64_PANEL), np.float32)
+    f64[f"cast_{F64_PANEL}"] = dict(elements=panel.size,
+                                    seconds=host_s(lambda: panel.astype(np.float64)))
+    del panel
+    label, kind, n, size, seeds = F64_PRODUCT
+    c_sp = spgemm_host(*cost_operands(kind, n, size, seeds))
+    f64[f"toarray_{label}"] = dict(elements=n * n, seconds=host_s(lambda: c_sp.toarray()))
+    dense = c_sp.toarray()
+    f64[f"triu_{label}"] = dict(elements=n * n, seconds=host_s(lambda: np.triu(dense)))
+    del c_sp, dense
+    for p in f64.values():
+        p["rate"] = p["elements"] / max(p["seconds"] - api._fresh(8 * p["elements"]) / page_rate,
+                                        1e-6)
+    dense_csr = {}
+    for label, kind, n, size, seeds in DENSE_CSR_POINTS:
+        panel = spgemm_host(*cost_operands(kind, n, size, seeds)).toarray()
+        seconds = host_s(lambda: sp.csr_matrix(panel))
+        dense_csr[label] = dict(elements=panel.size, seconds=seconds, rate=panel.size / seconds)
+        del panel
+    scipy = {}
+    for label, kind, n, size, seeds in SCIPY_POINTS:
+        h_sp, q_sp = cost_operands(kind, n, size, seeds)
+        hq = h_sp @ q_sp
+        ht = h_sp.T.tocsr()
+        partials = (expansion_size(h_sp.indices, h_sp.nnz, q_sp.indptr)
+                    + expansion_size(hq.indices, hq.nnz, ht.indptr))
+        seconds = host_s(lambda: (h_sp @ q_sp) @ h_sp.T)
+        scipy[label] = dict(partials=partials, seconds=seconds, rate=partials / seconds)
+        del h_sp, q_sp, hq, ht
     a = smt.from_scipy(sa_sp, dtype=torch.float32, device=DEVICE)
     b = smt.from_scipy(sb_sp, dtype=torch.float32, device=DEVICE)
-    panel = fetch_np(spgemm_dense_out(a, b))
+    pack_panel = fetch_np(spgemm_dense_out(a, b))
     del a, b
-    seconds = wall_s(lambda: dense_pack(panel))
-    return dict(elements=panel.size, seconds=seconds, host_pack_rate=panel.size / seconds)
+    pack_s = host_s(lambda: dense_pack(pack_panel))
+    pack = {f"sibling_panel_{SIB_N}": dict(elements=pack_panel.size, seconds=pack_s,
+                                           rate=pack_panel.size / pack_s)}
+    del pack_panel
+    return dict(host_csr_rate=rate_fit(csr, "rate"), esc_plan_rate=rate_fit(plan, "rate"),
+                triu_rebuild_rate=rate_fit(triu, "rate"), host_f64_rate=rate_fit(f64, "rate"),
+                dense_csr_rate=rate_fit(dense_csr, "rate"),
+                scipy_partial_rate=rate_fit(scipy, "rate"), host_pack_rate=rate_fit(pack, "rate"))
 
 
 def sweep_oracle(a_sp, b_sp, kw):
@@ -2228,42 +2493,100 @@ def sweep_result_ok(label, got, want) -> float:
     return float(np.abs(got - want).max())
 
 
-def crossover_sweep() -> tuple:
-    """Each COST_SWEEP request on the host route, the device route and as the
-    model decides (warm, min of PATH_RUNS each), with the model's estimates
-    and pick, each result against scipy; the hand kernels' launches over the
-    sweep (counts zeroed just before it)."""
+def model_picks(cfg: dict) -> dict:
+    """The cost model's pick for each COST_SWEEP request under the config
+    ``cfg`` sets, with this process's link terms:
+    {label: (est_host, est_dev, pick)}."""
+    picks = {}
+    with config_set(**cfg):
+        for label, kind, n, size, seeds, kw in COST_SWEEP:
+            est_host, est_dev = model_costs(*cost_operands(kind, n, size, seeds), **kw)
+            picks[label] = (est_host, est_dev, "host" if est_host < est_dev else "device")
+    return picks
+
+
+def cold_run(fitted: dict) -> dict:
+    """Phase 20's probe and picks in a fresh process (this script with
+    COLD_FLAG): its link terms, its 200 MiB transfers and its pick for each
+    COST_SWEEP request under ``fitted``."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), COLD_FLAG,
+                           json.dumps(fitted)], cwd=root, capture_output=True, text=True,
+                          timeout=600)
+    lines = proc.stdout.strip().splitlines()
+    require(proc.returncode == 0 and lines and lines[-1].startswith('{"cold"'),
+            f"the cold cost-model run: exit {proc.returncode}, {proc.stdout[-2000:]!r} "
+            f"{proc.stderr[-2000:]!r}")
+    return json.loads(lines[-1])["cold"]
+
+
+def cold_main(fitted_json: str) -> int:
+    """The fresh process of :func:`cold_run`: one JSON line {"cold": ...}."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
+        return 2
+    fitted = json.loads(fitted_json)
+    t0 = time.perf_counter()
+    with config_set(**fitted):
+        link = link_phase()
+    picks = model_picks(fitted)
+    print(json.dumps({"cold": dict(link=link, picks=picks, seconds=time.perf_counter() - t0)}))
+    return 0
+
+
+def crossover_sweep(fitted: dict, cold: dict) -> tuple:
+    """Each COST_SWEEP request on the host route, the device route and as
+    the model decides (warm, :func:`best_call`) under this run's ``fitted``
+    rates, with the model's estimates and pick, the cold
+    run's pick and the committed defaults' pick beside it; a pick is wrong
+    where the other route is faster by more than PICK_MARGIN; each result
+    against scipy; the hand kernels' launches over the sweep (counts zeroed
+    just before it)."""
     rows = []
     reset_launches()
     for label, kind, n, size, seeds, kw in COST_SWEEP:
         a_sp, b_sp = cost_operands(kind, n, size, seeds)
-        est_host, est_dev = model_costs(a_sp, b_sp, **kw)
+        default_host, default_dev = model_costs(a_sp, b_sp, **kw)
+        with config_set(**fitted):
+            est_host, est_dev = model_costs(a_sp, b_sp, **kw)
         call = lambda: smt.sparse_matrix_multiply(a_sp, b_sp, **kw)  # noqa: E731
         want = sweep_oracle(a_sp, b_sp, kw)
         times, routes, errs = {}, {}, {}
         for way, cfg in (("host", HOST_ROUTE), ("device", DEVICE_ROUTE), ("model", {})):
-            with config_set(**cfg):
+            with config_set(**fitted), config_set(**cfg):
                 times[way], got, routes[way] = best_call(call)
+                if way == "device":  # the last call's host stages, on the ESC routes
+                    stages = {k: round(v, 4) for k, v in api.get_last_route_stages().items()}
             errs[way] = sweep_result_ok(f"{label} ({way})", got, want)
             del got
         del want
         pick = "host" if est_host < est_dev else "device"
+        other = "device" if pick == "host" else "host"
         require(routes["host"] == "host" and routes["device"] != "host",
                 f"{label}: forced routes {routes}")
         require((routes["model"] == "host") == (pick == "host"),
                 f"{label}: the model picked {pick} but the router took {routes['model']}")
         faster = "host" if times["host"] < times["device"] else "device"
-        r = dict(label=label, partials=int(expansion_size(a_sp.indices, a_sp.nnz, b_sp.indptr)),
-                 **kw, est_host_s=est_host, est_dev_s=est_dev, pick=pick, host_s=times["host"],
-                 device_s=times["device"], model_s=times["model"], device_route=routes["device"],
-                 faster=faster, pick_right=pick == faster, max_abs_err=errs)
+        r = dict(label=label, held_out=label in HELD_OUT,
+                 partials=int(expansion_size(a_sp.indices, a_sp.nnz, b_sp.indptr)), **kw,
+                 est_host_s=est_host, est_dev_s=est_dev, pick=pick,
+                 cold_pick=cold["picks"][label][2],
+                 default_pick="host" if default_host < default_dev else "device",
+                 device_stages=stages,
+                 host_s=times["host"], device_s=times["device"], model_s=times["model"],
+                 device_route=routes["device"], model_route=routes["model"], faster=faster,
+                 pick_right=times[pick] <= PICK_MARGIN * times[other], max_abs_err=errs)
         rows.append(r)
-        print(f"[cost-sweep] {label}: {r['partials']:.4e} partials | est_host {est_host:.4e} s, "
-              f"est_dev {est_dev:.4e} s -> {pick} | host route {r['host_s']:.4f} s, device "
-              f"route ({r['device_route']}) {r['device_s']:.4f} s, as the model decides "
-              f"{r['model_s']:.4f} s | faster: {faster}, "
-              f"{'right' if r['pick_right'] else 'WRONG'} pick | max abs err vs scipy {errs}",
-              flush=True)
+        print(f"[cost-sweep] {label}{' (held out)' if r['held_out'] else ''}: "
+              f"{r['partials']:.4e} partials | est_host {est_host:.4e} s, est_dev {est_dev:.4e} s "
+              f"-> {pick} (cold run: {r['cold_pick']}; committed defaults: {r['default_pick']}) | "
+              f"host route {r['host_s']:.4f} s, device route ({r['device_route']}) "
+              f"{r['device_s']:.4f} s, as the model decides ({r['model_route']}) "
+              f"{r['model_s']:.4f} s{f' (device route stages {stages})' if stages else ''} | "
+              f"faster: {faster} by "
+              f"x{max(times['host'], times['device']) / min(times['host'], times['device']):.2f}, "
+              f"{'right' if r['pick_right'] else 'WRONG'} pick (margin {PICK_MARGIN}) | max abs "
+              f"err vs scipy {errs}", flush=True)
     launches = dict(LAUNCHES)
     for key in DENSE_PATH_KERNELS:
         require(launches[key] > 0, f"the cost-model sweep launched no {KERNELS[key][0]}")
@@ -2283,39 +2606,73 @@ def demo_on_card() -> list:
 
 
 def cost_model_phase(sa_sp, sb_sp, name: str, smi: str) -> dict:
-    """Phase 20: the link calibration beside a LINK_BYTES transfer, the host
-    rate fit, the pack rate, the three-branch crossover sweep, the demo."""
+    """Phase 20: the host-work rates fitted on their points, the probe and
+    the picks in a fresh process (cold), the probe beside LINK_BYTES
+    transfers here (warm), the crossover sweep under the fitted rates with
+    both runs' picks, the demo."""
     t0 = time.perf_counter()
-    link = link_phase()
+    page = host_page_fit()
     fit = host_rate_fit()
-    pack = pack_rate(sa_sp, sb_sp)
+    dev = device_work_fit()
+    work = dict(host_work_fit(sa_sp, sb_sp, page["rate"]), host_page_rate=page,
+                host_out_page_rate=fit["host_out_page_rate"], host_copy_rate=host_copy_fit(),
+                host_upload_rate=dev["host_upload_rate"])
+    fitted = dict(host_rate_base=fit["host_rate_base"], host_partial_rate=fit["host_partial_rate"],
+                  host_entry_rate=fit["host_entry_rate"], esc_fixed_s=dev["esc_fixed_s"],
+                  esc_engine_rate=dev["esc_engine_rate"],
+                  **{key: f["rate"] for key, f in work.items()})
+    cold = cold_run(fitted)
+    with config_set(**fitted):
+        link = link_phase()
     threads = dict(cpu_count=os.cpu_count(), omp_num_threads=os.environ.get("OMP_NUM_THREADS"),
                    torch_threads=torch.get_num_threads())
-    cal = link["calibrated"]
-    phase("cost-model", t0, f"{name} [{smi}] | host {threads} | link: calibrated in "
-          f"{link['calibrate_s']:.4f} s: link_fixed_s {cal['link_fixed_s']:.3e}, up "
-          f"{cal['link_up_bytes_per_s']:.4e} B/s, down {cal['link_down_bytes_per_s']:.4e} B/s; "
-          f"{LINK_BYTES >> 20} MiB pageable, min of {PATH_RUNS}: down {link['down_s']:.4f} s "
-          f"({link['down_bytes_per_s']:.4e} B/s; the probe predicts {link['down_predicted_s']:.4f}"
-          f" s, x{link['down_miss']:.2f}), up {link['up_s']:.4f} s ({link['up_bytes_per_s']:.4e}"
-          f" B/s; predicted {link['up_predicted_s']:.4f} s, x{link['up_miss']:.2f}) | "
+    down_ratio = (link["calibrated"]["link_down_bytes_per_s"]
+                  / cold["link"]["calibrated"]["link_down_bytes_per_s"])
+    phase("cost-model", t0, f"{name} [{smi}] | host {threads} | link, this process (warm): "
+          f"{link_line(link)} | a fresh process (cold, {cold['seconds']:.1f} s): "
+          f"{link_line(cold['link'])} | probe download warm/cold x{down_ratio:.3f} | "
           "spgemm_host, min of 3: " + "; ".join(
-              f"{label}: {p['partials']:.4e} partials, reuse {p['reuse']:.2f}, {p['seconds']:.4f}"
-              f" s, {p['partials_per_s']:.4e}/s, residual {p['residual']:+.3f}"
+              f"{label}: {p['partials']:.4e} partials, {p['nnz']:.4e} entries, reuse "
+              f"{p['reuse']:.2f}, {p['seconds']:.4f} s, {p['partials_per_s']:.4e}/s, residual "
+              f"{p['residual']:+.3f} (sqrt-reuse), {p['two_term_residual']:+.3f} (work terms)"
               for label, p in fit["points"].items())
-          + f" | fit host_rate_base {fit['host_rate_base']:.4e} | dense_pack of the {SIB_N}^2 "
-          f"f32 panel {pack['seconds']:.4f} s: host_pack_rate {pack['host_pack_rate']:.4e}/s")
+          + f" | fit host_rate_base {fit['host_rate_base']:.4e} (the CPU's formula); "
+          f"host_partial_rate {fit['host_partial_rate']:.4e}, host_entry_rate "
+          f"{fit['host_entry_rate']:.4e} | windowed engine on the card, min of {PATH_RUNS}: "
+          + "; ".join(f"{label}: {p['partials']:.4e} partials, {p['seconds']:.4f} s, residual "
+                      f"{p['residual']:+.3f}" for label, p in dev["engine"].items())
+          + f": esc_fixed_s {dev['esc_fixed_s']:.4e}, esc_engine_rate {dev['esc_engine_rate']:.4e}"
+          + " | " + " | ".join(
+              f"{key} {f['rate']:.4e}/s (" + ", ".join(
+                  f"{label} {f['points'][label]['rate']:.4e} "
+                  f"({f['points'][label]['seconds']:.4f} s), residual {res:+.3f}"
+                  for label, res in f["residuals"].items()) + ")"
+              for key, f in work.items()))
     t1 = time.perf_counter()
-    rows, launches = crossover_sweep()
-    phase("cost-sweep", t1, f"{len(rows)} requests, {sum(not r['pick_right'] for r in rows)} "
-          f"wrong picks; launches over the sweep {launches}")
+    rows, launches = crossover_sweep(fitted, cold)
+    wrong = [r["label"] for r in rows if not r["pick_right"]]
+    same = all(r["pick"] == r["cold_pick"] for r in rows)
+    default_wrong = [r["label"] for r in rows if (r["default_pick"] == r["pick"])
+                     != r["pick_right"]]
+    a_row = next(r for r in rows if r["label"] == "sparse_hyper_200k")
+    phase("cost-sweep", t1, f"{len(rows)} requests ({len(HELD_OUT)} held out), this run's fit: "
+          f"{len(wrong)} wrong picks {wrong} | same picks cold and warm: "
+          f"{'yes' if same else 'no'} | the committed defaults would pick wrong at "
+          f"{default_wrong} (by the same times) | probe download "
+          f"rate warm/cold x{down_ratio:.3f}; 200 MiB download over the probe's prediction: warm "
+          f"x{link['down_miss']:.2f}, cold x{cold['link']['down_miss']:.2f} | request (a) as the "
+          f"model decides ({a_row['model_route']}) {a_row['model_s']:.4f} s, x"
+          f"{a_row['model_s'] / min(a_row['host_s'], a_row['device_s']):.3f} the faster forced "
+          f"route | launches over the sweep {launches}")
     t1 = time.perf_counter()
     demo = demo_on_card()
     phase("demo", t1, f"examples/demo_torch.py --device {DEVICE}: {len(demo)} lines, all [ok]; "
           f"last: {demo[-1]}")
-    return dict(card=name, nvidia_smi=smi, host=threads, link=link, host_rate=fit,
-                pack=pack, sweep=rows, launches=launches,
-                wrong_picks=[r["label"] for r in rows if not r["pick_right"]],
+    return dict(card=name, nvidia_smi=smi, host=threads, link=link, cold=cold, host_rate=fit,
+                host_work=work, engine=dev["engine"], fitted=fitted, sweep=rows,
+                launches=launches, wrong_picks=wrong, default_wrong_picks=default_wrong,
+                same_picks=same,
+                probe_down_warm_over_cold=down_ratio,
                 phase_s=time.perf_counter() - t0)
 
 
@@ -2665,7 +3022,7 @@ def main() -> int:
     answers = {}
     reset_launches()
     bsr_per_request, bsr_seconds = counted(
-        [(label, request(label, a_bsp, bsr_b[which], **kw))
+        [(label, request(label, a_bsp, bsr_b[which], BSR_ROUTE, **kw))
          for label, which, kw, _ in BSR_REQUESTS],
         answers)
     launches_bsr = dict(LAUNCHES)
@@ -2706,29 +3063,30 @@ def main() -> int:
     t0 = time.perf_counter()
     e2e = {}
     for label, which in (("bsr_x_bsr_8192", "b"), ("bsr_x_dense_8192", "bu")):
-        e2e[label] = {"bsr": wall_s(lambda: smt.sparse_matrix_multiply(a_bsp, bsr_b[which]))}
+        with config_set(**BSR_ROUTE):
+            e2e[label] = {"bsr": wall_s(lambda: smt.sparse_matrix_multiply(a_bsp, bsr_b[which]))}
         require(smt.get_last_route() == "bsr", f"{label}: timed call took another route")
-        saved = smt.get_config()
-        smt.set_config(use_bsr=False)
-        try:
-            e2e[label]["dense"] = wall_s(lambda: smt.sparse_matrix_multiply(a_bsp, bsr_b[which]))
-            require(smt.get_last_route() == "dense", f"{label}: use_bsr=False did not go dense")
-        finally:
-            smt.set_config(saved)
+        e2e[label]["dense"] = wall_s(lambda: smt.sparse_matrix_multiply(a_bsp, bsr_b[which]))
+        require(smt.get_last_route() == "dense", f"{label}: the router did not go dense")
     bsr_stages, stage_extraction = bsr_stage_times(a_bsp, b_bsp)
     phase("bsr-timing", t0, f"{name} [{smi}]: sparse_matrix_multiply end to end, host clock, "
           f"min of {PATH_RUNS}: " + " | ".join(
-              f"{label} BSR route {t['bsr']:.4f} s, dense route (use_bsr=False) {t['dense']:.4f} s"
+              f"{label} BSR route (force_bsr) {t['bsr']:.4f} s, dense route (as the router "
+              f"decides) {t['dense']:.4f} s"
               for label, t in e2e.items()))
     print(f"[bsr-stages] bsr_x_bsr_8192 sparse_matrix_multiply ({stage_extraction} extraction), "
           f"host clock, min of {PATH_RUNS + 1}: " + json.dumps(bsr_stages), flush=True)
     t0 = time.perf_counter()
     crossover = bsr_crossover(b_bsp)
+    cutoff = crossover_cutoff(crossover)
     phase("bsr-crossover", t0, f"{name} [{smi}]: A x B (B {BSR_OCC} occupied), "
-          f"sparse_matrix_multiply end to end, host clock, min of {PATH_RUNS}: " + " | ".join(
-              f"A occupancy {r['occupancy']:.4f} ({r['pairs']} pairs): BSR route {r['bsr']:.4f} s "
-              f"({r['kernel']}), dense route {r['dense']:.4f} s, BSR/dense {r['bsr'] / r['dense']:.3f}"
-              for r in crossover))
+          f"sparse_matrix_multiply end to end, host clock, min of {PATH_RUNS} (one run after the "
+          f"warm call where that took over {SLOW_CALL_S} s): " + " | ".join(
+              f"{r['n']}^2, A occupancy {r['occupancy']:.4f} ({r['pairs']} pairs): BSR route "
+              f"{r['bsr']:.4f} s ({r['kernel']}), dense route {r['dense']:.4f} s, BSR/dense "
+              f"{r['bsr'] / r['dense']:.3f}" for r in crossover)
+          + f" | the cutoff this gives: {cutoff} (Config.cuda_bsr_occupancy_cutoff "
+          f"{smt.get_config().cuda_bsr_occupancy_cutoff})")
     del a_bsp, b_bsp, bu_sp, bsr_b
 
     # 10. the fused conversions K7/K8 through their own entry points, counted
@@ -2820,4 +3178,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == COLD_FLAG:
+        sys.exit(cold_main(sys.argv[2]))
     sys.exit(main())

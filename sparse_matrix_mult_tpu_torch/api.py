@@ -163,10 +163,37 @@ def block_occupancy(mat, block_size: int) -> float:
     return np.count_nonzero(np.bincount(keys, minlength=nbr * nbc)) / (nbr * nbc)
 
 
+def _block_sparse(mat, block_size: int, cutoff: float) -> bool:
+    """``block_occupancy(mat, block_size) <= cutoff``, scanned a group of
+    block-rows at a time and stopped as soon as the occupied count passes
+    the cutoff (the same division, so the same answer as the full scan).
+    A cutoff of 0 or less answers ``False`` without a scan."""
+    if cutoff <= 0:
+        return False
+    if not isspmatrix_csr(mat):
+        mat = csr_matrix(mat)
+    b = int(block_size)
+    m, n = mat.shape
+    nbr, nbc = -(-m // b), -(-n // b)
+    blocks = nbr * nbc
+    step = max(1, -(-nbr // 16))
+    occupied = 0
+    for start in range(0, nbr, step):
+        stop = min(start + step, nbr)
+        bounds = mat.indptr[np.minimum(np.arange(start, stop + 1) * b, m)]
+        block_row = np.repeat(np.arange(stop - start, dtype=np.int64), np.diff(bounds))
+        keys = block_row * nbc + mat.indices[bounds[0]:bounds[-1]] // b
+        occupied += np.count_nonzero(np.bincount(keys, minlength=(stop - start) * nbc))
+        if occupied / blocks > cutoff:
+            return False
+    return occupied / blocks <= cutoff
+
+
 def _bsr_route_ok(a_sp, device) -> bool:
     """Whether A goes down the BSR route: on CUDA, with the block size the
-    kernels take, at least 2x2 blocks and at most ``bsr_occupancy_cutoff``
-    of them occupied; always with ``force_bsr``; never with ``use_bsr`` off."""
+    kernels take, at least 2x2 blocks and at most
+    ``cuda_bsr_occupancy_cutoff`` of them occupied (at the default 0, never:
+    no scan runs); always with ``force_bsr``; never with ``use_bsr`` off."""
     cfg = get_config()
     if not cfg.use_bsr:
         return False
@@ -178,7 +205,7 @@ def _bsr_route_ok(a_sp, device) -> bool:
     m, k = a_sp.shape
     if m < 2 * b or k < 2 * b:
         return False  # fewer than 2x2 blocks: nothing to skip
-    return block_occupancy(a_sp, b) <= cfg.bsr_occupancy_cutoff
+    return _block_sparse(a_sp, b, cfg.cuda_bsr_occupancy_cutoff)
 
 
 def _device_key(device) -> str:
@@ -191,19 +218,25 @@ def _device_key(device) -> str:
 
 # Calibrated link terms by device (_calibrate_link).
 _LINK_TERMS: dict = {}
+_PROBE_BYTES = 8 << 20
+_PROBE_RUNS = 3
 
 
 def _calibrate_link(device) -> dict:
     """Measure ``device``'s link and remember it: the ``link_*`` terms by name.
 
-    JAX's probe (``sparse_matrix_mult_tpu/api.py:498-545``) in torch: the round
-    trip is the minimum of 3 one-element kernels read back by ``.item()``; the
-    download a fresh 2 MiB result fetched as :func:`fetch_np` fetches it
-    (pageable ``.cpu()``), net of the round trip; the upload a 2 MiB
-    ``torch.from_numpy(h).to(device)`` and a synchronize.  Two differences:
-    the terms are kept per device (the port's device is explicit, and a CPU
-    calibration must not price a CUDA request), not written into the config;
-    and a probe that fails raises, where JAX keeps its defaults.
+    JAX's probe (``sparse_matrix_mult_tpu/api.py:498-545``) in torch, with
+    JAX's structure: the fixed term is one-element round trips read back by
+    ``.item()``; the download and upload rates those of ``_PROBE_BYTES``
+    copies net of the round trip.  Each is warmed once untimed and timed as
+    the least of 3.  On CUDA the copies use pinned host memory: the link
+    alone.  What a pageable fetch adds on the host (the CUDA runtime's
+    staging copy, and the fresh pages a large result lands in, which can
+    cost 10x more in a young process than in an old one on an H100 host) is
+    host work that the CUDA cost model prices apart
+    (``Config.host_copy_rate``, ``host_page_rate``).  Unlike JAX the terms
+    are kept per device (a CPU calibration must not price a CUDA request),
+    not written into the config, and a probe that fails raises.
     """
     key = _device_key(device)
     dev = torch.device(key)
@@ -212,30 +245,38 @@ def _calibrate_link(device) -> dict:
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
 
+    def best(fn):
+        fn()  # warm
+        times = []
+        for _ in range(_PROBE_RUNS):
+            t0 = time.perf_counter()
+            fn()
+            sync()
+            times.append(time.perf_counter() - t0)
+        return min(times)
+
     one = torch.ones(1, device=dev)
-    (one + 1.0).item()
-    rtts = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        (one + 1.0).item()
-        rtts.append(time.perf_counter() - t0)
-    rtt = min(rtts)
-    nbytes = 2 << 20
-    x = torch.ones(nbytes // 4, dtype=torch.float32, device=dev)
-    fetch_np(x * 2.0)
-    t0 = time.perf_counter()
-    fetch_np(x * 2.0)  # a fresh result each time
-    down_bw = nbytes / max(time.perf_counter() - t0 - rtt, 1e-5)
-    h = np.ones(nbytes // 4, np.float32)
-    torch.from_numpy(h).to(dev)
-    sync()
-    t0 = time.perf_counter()
-    torch.from_numpy(h).to(dev)
-    sync()
-    up_bw = nbytes / max(time.perf_counter() - t0 - rtt, 1e-5)
-    _LINK_TERMS[key] = dict(link_fixed_s=max(rtt, 1e-5), link_up_bytes_per_s=max(up_bw, 1e6),
-                            link_down_bytes_per_s=max(down_bw, 1e6))
+    rtt = best(lambda: (one + 1.0).item())
+    x = torch.full((_PROBE_BYTES // 4,), 2.0, dtype=torch.float32, device=dev)
+    fetch_np(x)  # the pageable path as the routes take it, warmed
+    host = torch.ones(_PROBE_BYTES // 4, dtype=torch.float32, pin_memory=dev.type == "cuda")
+    down_s = best(lambda: host.copy_(x))
+    up_s = best(lambda: x.copy_(host))
+    _LINK_TERMS[key] = dict(
+        link_fixed_s=max(rtt, 1e-5),
+        link_up_bytes_per_s=max(_PROBE_BYTES / max(up_s - rtt, 1e-5), 1e6),
+        link_down_bytes_per_s=max(_PROBE_BYTES / max(down_s - rtt, 1e-5), 1e6))
     return _LINK_TERMS[key]
+
+
+def _link_terms(device) -> dict:
+    """The ``link_*`` terms that price ``device``'s requests: measured once
+    per device with ``auto_calibrate_link``, else the config's."""
+    cfg = get_config()
+    if cfg.auto_calibrate_link:
+        return _LINK_TERMS.get(_device_key(device)) or _calibrate_link(device)
+    return dict(link_fixed_s=cfg.link_fixed_s, link_up_bytes_per_s=cfg.link_up_bytes_per_s,
+                link_down_bytes_per_s=cfg.link_down_bytes_per_s)
 
 
 def _est_result_nnz(expand: int, m: int, n: int) -> int:
@@ -246,23 +287,24 @@ def _est_result_nnz(expand: int, m: int, n: int) -> int:
     return int(slots * (1.0 - np.exp(-expand / slots)))
 
 
-def _route_costs(expand: int, a_sp, b_sp, device, out_bytes: int | None = None):
-    """(est_host, est_dev) seconds of a scipy-in request: JAX's cost model
-    (``sparse_matrix_mult_tpu/api.py:557-599``), term for term.
+def _route_costs(expand: int, a_sp, b_sp, device, out_bytes: int | None = None, *,
+                 request: str | None = None, symmetric: bool = False, full: bool = False):
+    """(est_host, est_dev) seconds of a scipy-in request.
 
-    The host multiplies at ``host_rate_base * sqrt(reuse)`` partials/s, reuse
-    = partials / expected nnz(C) (SPA cache reuse).  The device pays the
+    JAX's cost model (``sparse_matrix_mult_tpu/api.py:557-599``), term for
+    term, unless the request is on CUDA and names its device route
+    (``request``): then :func:`_cuda_route_costs`.  JAX's: the host
+    multiplies at ``host_rate_base * sqrt(reuse)`` partials/s, reuse =
+    partials / expected nnz(C) (SPA cache reuse).  The device pays the
     link's fixed latency, the operands' upload and the result's download:
     ``out_bytes``, or for a sparse output the cheaper of packed CSR and the
     raw panel plus the host pack.  Entries are an int32 index and a value of
-    the upload dtype.  With ``auto_calibrate_link`` the link terms are the
-    device's measured ones (:func:`_calibrate_link`, once per device).
+    the upload dtype.  The link terms are :func:`_link_terms`'.
     """
+    link = _link_terms(device)
+    if request is not None and torch.device(device).type == "cuda":
+        return _cuda_route_costs(expand, a_sp, b_sp, link, request, symmetric, full)
     cfg = get_config()
-    link = dict(link_fixed_s=cfg.link_fixed_s, link_up_bytes_per_s=cfg.link_up_bytes_per_s,
-                link_down_bytes_per_s=cfg.link_down_bytes_per_s)
-    if cfg.auto_calibrate_link:
-        link = _LINK_TERMS.get(_device_key(device)) or _calibrate_link(device)
     m = a_sp.shape[0]
     n = b_sp.shape[1]
     val_bytes = _value_bytes(a_sp, b_sp, device)
@@ -281,11 +323,132 @@ def _route_costs(expand: int, a_sp, b_sp, device, out_bytes: int | None = None):
     return est_host, est_dev
 
 
-def _host_route_wins(expand: int, a_sp, b_sp, device, out_bytes: int | None = None) -> bool:
+# glibc's largest mmap threshold: a host array past it is mapped afresh, and
+# its first writes fault its pages in (Config.host_page_rate).
+_MMAP_BYTES = 32 << 20
+
+
+def _fresh(*nbytes) -> int:
+    """The bytes of the host arrays of these sizes that land in fresh pages."""
+    return sum(b for b in nbytes if b > _MMAP_BYTES)
+
+
+def _cuda_route_costs(expand: int, a_sp, b_sp, link: dict, request: str, symmetric: bool,
+                      full: bool):
+    """(est_host, est_dev) of a CUDA request: each side prices the host work
+    of the route it would take, at the rates of the config, and the device
+    side the link (:func:`_link_terms`) as in JAX and the host work of the
+    upload (``host_upload_rate``).  Of the device's own time only the ESC
+    engine's is priced (``esc_fixed_s``, ``esc_engine_rate``): the dense
+    route's kernels take a few ms where its host work takes tens.
+
+    ``request``: the device route of a sparse output (``"dense"``,
+    ``"esc"``, ``"dense_chunks"``, ``"esc_chunks"``;
+    :func:`_sparse_device_route`), ``"dense_output"`` or ``"triple"``
+    (``expand`` is then JAX's, twice the expansion of H Q; ``full``:
+    ``compute_full_matrix``).  The host side: ``spgemm_host`` at
+    ``host_partial_rate`` per partial and ``host_entry_rate`` per output
+    entry, and its output's fresh pages, which its threads fault in
+    together, at ``host_out_page_rate``; for the triple scipy's
+    ``(H Q) H^T`` at ``scipy_partial_rate``; a dense result's f64 passes
+    (``toarray``, ``triu``, the mirror) at ``host_f64_rate`` (a symmetric
+    output's ``toarray`` touches half its pages).  The device side: the
+    download (the link, then the CUDA runtime's staging copy at
+    ``host_copy_rate``) and what the route does
+    with it on the host: ``to_scipy`` and the cast (``host_csr_rate``), the
+    window plan (``esc_plan_rate``), ``_fetch_full_triu``'s rebuild
+    (``triu_rebuild_rate``), the panel pack (``host_pack_rate``), a small
+    panel's ``csr_matrix`` (``dense_csr_rate``) or a dense result's cast
+    (``host_f64_rate``).  On both sides every host array past
+    ``_MMAP_BYTES`` also pays for its fresh pages (``host_page_rate``).
+    """
+    cfg = get_config()
+    m, k = a_sp.shape
+    n = b_sp.shape[1]
+    val_bytes = _value_bytes(a_sp, b_sp, "cuda")
+
+    def page(*nbytes):
+        return _fresh(*nbytes) / cfg.host_page_rate
+
+    def download(*nbytes):
+        total = sum(nbytes)
+        return (total / link["link_down_bytes_per_s"] + total / cfg.host_copy_rate
+                + page(*nbytes))
+
+    uploaded = a_sp.nnz + b_sp.nnz
+    est_dev = (link["link_fixed_s"] + (4 + val_bytes) * uploaded / link["link_up_bytes_per_s"]
+               + uploaded / cfg.host_upload_rate)
+    if request == "triple":
+        hq = _est_result_nnz(expand // 2, m, k)  # entries of H Q, each meeting H^T's mean row
+        partials = expand // 2 + hq * a_sp.nnz / max(k, 1)
+        passes = 4 if full else 2  # toarray and triu, then triu(c, 1).T and the sum
+        est_host = (partials / cfg.scipy_partial_rate
+                    + passes * (m * m / cfg.host_f64_rate + page(8 * m * m)))
+        return est_host, (est_dev + download(val_bytes * m * m) + m * m / cfg.host_f64_rate
+                          + page(8 * m * m))
+    slots = m * n
+    nnz = _est_result_nnz(expand, m, n)
+    if symmetric and m == n:
+        nnz = nnz * (m + 1) // (2 * m)  # the upper triangle's share
+    est_host = (expand / cfg.host_partial_rate + nnz / cfg.host_entry_rate
+                + _fresh(4 * nnz, 8 * nnz) / cfg.host_out_page_rate)
+    # to_scipy: indices and values down, the values cast to f64, csr_matrix
+    csr_cost = download(4 * nnz, val_bytes * nnz) + nnz / cfg.host_csr_rate + page(8 * nnz)
+    if request == "dense_output":
+        dense_cost = slots / cfg.host_f64_rate + page(8 * slots)
+        # toarray writes the output's entries into zeroed pages: a triangle's
+        # touch half of them; the device route's cast writes every element
+        touched = 0.5 if symmetric and m == n else 1.0
+        return (est_host + touched * dense_cost,
+                est_dev + download(val_bytes * slots) + dense_cost)
+    if request in ("esc", "esc_chunks"):
+        est_dev += (a_sp.nnz / cfg.esc_plan_rate + cfg.esc_fixed_s + expand / cfg.esc_engine_rate
+                    + csr_cost)
+        if request == "esc_chunks":
+            est_dev += nnz / cfg.host_csr_rate  # the stitch
+        return est_host, est_dev
+    panel_bytes = val_bytes * slots
+    if request == "dense" and slots <= cfg.host_extract_limit:
+        est_dev += (download(panel_bytes) + slots / cfg.host_f64_rate + page(8 * slots)
+                    + slots / cfg.dense_csr_rate)
+    elif request == "dense" and symmetric and m == n and slots * np.exp(-expand / slots) < 1:
+        # a full triangle (under one empty slot expected): values only
+        est_dev += (download(val_bytes * nnz) + nnz / cfg.host_f64_rate + page(8 * nnz)
+                    + nnz / cfg.triu_rebuild_rate)
+    elif panel_bytes < (4 + val_bytes) * fine_capacity(nnz):
+        est_dev += download(panel_bytes) + slots / cfg.host_pack_rate + page(4 * nnz, 8 * nnz)
+    else:
+        est_dev += csr_cost
+    if request == "dense_chunks":
+        est_dev += nnz / cfg.host_csr_rate  # the stitch
+    return est_host, est_dev
+
+
+def _host_route_wins(expand: int, a_sp, b_sp, device, out_bytes: int | None = None,
+                     **request) -> bool:
     """Whether the cost model sends a scipy-in request to the host
     (:func:`_route_costs`).  The device-resident entry points never ask."""
-    est_host, est_dev = _route_costs(expand, a_sp, b_sp, device, out_bytes)
+    est_host, est_dev = _route_costs(expand, a_sp, b_sp, device, out_bytes, **request)
     return est_host < est_dev
+
+
+def _request_costs(a_sp, b_sp, device, output_format="sparse", symmetric=False,
+                   use_triple_product=False, compute_full_matrix=0, imem_size=None):
+    """(est_host, est_dev) the router's cost model gives a
+    :func:`sparse_matrix_multiply` request with these arguments (the
+    branch's expansion, download and, on CUDA, device route)."""
+    a_sp, b_sp = _coerce_csr(a_sp), _coerce_csr(b_sp)
+    expand = expansion_size(a_sp.indices, a_sp.nnz, b_sp.indptr)
+    val_bytes = _value_bytes(a_sp, b_sp, device)
+    m, n = a_sp.shape[0], b_sp.shape[1]
+    if use_triple_product:
+        return _route_costs(2 * expand, a_sp, b_sp, device, out_bytes=val_bytes * m * m,
+                            request="triple", full=bool(compute_full_matrix))
+    if output_format == "dense":
+        return _route_costs(expand, a_sp, b_sp, device, out_bytes=val_bytes * m * n,
+                            request="dense_output", symmetric=symmetric)
+    route = _sparse_device_route(expand, a_sp, b_sp, _esc_limit(imem_size), device)
+    return _route_costs(expand, a_sp, b_sp, device, request=route, symmetric=symmetric)
 
 
 def _bsr_product_host(a_sp, b_sp, symmetric: bool, device) -> torch.Tensor:
@@ -302,7 +465,7 @@ def _bsr_product_host(a_sp, b_sp, symmetric: bool, device) -> torch.Tensor:
     bs_a = _tobsr_padded(a_sp, bsz)
     a_bsr = bsr_from_scipy(a_sp, bsz, torch.float32, padded_bsr=bs_a, device=device)
     c = None
-    if block_occupancy(b_sp, bsz) <= cfg.bsr_occupancy_cutoff:
+    if _block_sparse(b_sp, bsz, cfg.bsr_occupancy_cutoff):
         bs_b = _tobsr_padded(b_sp, bsz)
         plan = bsr_pair_plan(a_sp, b_sp, bsz, bs_a=bs_a, bs_b=bs_b)
         nbc = -(-b_sp.shape[1] // bsz)
@@ -380,6 +543,14 @@ def _fetch_full_triu(c: torch.Tensor, nnz: int):
     if int(indptr[-1]) != nnz:
         raise RuntimeError(f"triu extraction produced {int(indptr[-1])} entries, expected {nnz}")
     values = fetch_np(csr.values[:nnz]).astype(np.float64)
+    return _full_triu_csr(values, indptr, m)
+
+
+def _full_triu_csr(values: np.ndarray, indptr: np.ndarray, m: int):
+    """scipy CSR of a full (m, m) upper triangle from its values and row
+    pointers: row i holds columns i..m-1, so the indices are rebuilt on the
+    host arithmetically."""
+    nnz = len(values)
     counts = np.diff(indptr)
     rows = np.repeat(np.arange(m, dtype=np.int64), counts)
     indices = (
@@ -418,6 +589,36 @@ def _binned_plan_for(a_sp, b_sp, expand: int):
     return None
 
 
+def _binned_budget(esc_limit: int, device):
+    """(binned budget, whether the binned rung runs) of the ladder whose ESC
+    budget is ``esc_limit``: the binned budget scales with it as in JAX.  On
+    CUDA the binned rung runs only with ``binned_esc_on_cuda``; without it
+    the windowed rung takes the binned budget."""
+    cfg = get_config()
+    budget = 0
+    if cfg.use_binned_esc:
+        budget = int(cfg.binned_expand_limit * (esc_limit / cfg.esc_expand_limit))
+    return budget, budget > 0 and (torch.device(device).type != "cuda" or cfg.binned_esc_on_cuda)
+
+
+def _sparse_device_route(expand: int, a_sp, b_sp, esc_limit: int, device) -> str:
+    """The rung a sparse-output request takes when it stays on the device:
+    ``"dense"``, ``"esc"`` (binned, windowed or classic), ``"dense_chunks"``
+    or ``"esc_chunks"`` (the ladder of :func:`_sparse_out_host`)."""
+    m, k = a_sp.shape
+    n = b_sp.shape[1]
+    wide = max(esc_limit, _binned_budget(esc_limit, device)[0])
+    keep = get_config().keep_structure
+    sparse_wins = expand <= wide and 4 * expand <= m * n
+    if dense_path_fits((m, k), (k, n), (m, n)) and not keep and not sparse_wins:
+        return "dense"
+    if expand <= wide:
+        return "esc"
+    if dense_path_fits((k, n)) and not keep:
+        return "dense_chunks"
+    return "esc_chunks"
+
+
 def _sparse_out_host(a_sp, b_sp, symmetric: bool, esc_limit: int, device):
     """sparse x sparse -> scipy CSR: the JAX strategy ladder, first match wins.
 
@@ -426,6 +627,8 @@ def _sparse_out_host(a_sp, b_sp, symmetric: bool, esc_limit: int, device):
     1. everything fits densely  -> dense route (unless ESC would win),
                                    BSR kernels for a block-sparse A
     2. expansion within budget  -> binned ESC, else windowed or classic ESC
+                                   (on CUDA windowed or classic: the binned
+                                   rung only with ``binned_esc_on_cuda``)
     3. B's panel fits densely   -> equal-row dense chunks
     4. otherwise                -> flop-balanced ESC chunks
 
@@ -433,67 +636,64 @@ def _sparse_out_host(a_sp, b_sp, symmetric: bool, esc_limit: int, device):
     prune exact zeros (1 and 3).  The ESC routes record their stages'
     host seconds (:func:`get_last_route_stages`).
     """
-    m, k = a_sp.shape
+    m = a_sp.shape[0]
     n = b_sp.shape[1]
     cfg = get_config()
     clock = _StageClock(device)
     expand = expansion_size(a_sp.indices, a_sp.nnz, b_sp.indptr)
     clock.mark("expansion_size")
     keep = cfg.keep_structure
-    # _bsr_route_ok stays behind the model: its O(nnz) occupancy scan runs
-    # only when the model already says "host".
+    route = _sparse_device_route(expand, a_sp, b_sp, esc_limit, device)
+    # _bsr_route_ok stays behind the model: its occupancy scan runs only
+    # when the model already says "host".
     if (expand <= cfg.host_compute_limit and not cfg.force_bsr) or (
-            _host_route_wins(expand, a_sp, b_sp, device)
+            _host_route_wins(expand, a_sp, b_sp, device, request=route, symmetric=symmetric)
             and not (_bsr_route_ok(a_sp, device) and not keep)):
         out = spgemm_host(a_sp, b_sp, symmetric, n_partials=expand, keep_structure=keep)
         _set_route("host")
         return out
 
-    budget = esc_limit
-    binned_budget = 0
-    if cfg.use_binned_esc:
-        binned_budget = int(cfg.binned_expand_limit * (budget / cfg.esc_expand_limit))
-    sparse_wins = expand <= max(budget, binned_budget) and 4 * expand <= m * n
-    if dense_path_fits((m, k), (k, n), (m, n)) and not keep and not sparse_wins:
+    if route == "dense":
         return _dense_to_scipy_csr(a_sp, b_sp, symmetric, device)
-    if expand <= max(budget, binned_budget):
+    if route == "esc":
+        binned_budget, binned = _binned_budget(esc_limit, device)
         dtype, _ = _upload_dtype(a_sp, b_sp, device)
         out_cap = bucket_capacity(min(expand, m * n))
-        plan = None
-        if expand <= binned_budget:
+        plan = wplan = None
+        if binned and expand <= binned_budget:
             plan = _binned_plan_for(a_sp, b_sp, expand)
             clock.mark("binned_plan")
-        if plan is None and expand > budget:
-            return _sparse_out_chunked_esc(a_sp, b_sp, symmetric, esc_limit, device, clock)
+        if plan is None:
+            if binned and expand > esc_limit:  # past the ESC budget only the binned rung runs
+                return _sparse_out_chunked_esc(a_sp, b_sp, symmetric, esc_limit, device, clock)
+            wplan = windowed_plan(a_sp.nnz, np.diff(b_sp.indptr)[a_sp.indices], expand)
+            clock.mark("windowed_plan")
+            if wplan is None and expand > esc_limit:  # the classic engine keeps the ESC budget
+                return _sparse_out_chunked_esc(a_sp, b_sp, symmetric, esc_limit, device, clock)
         a = from_scipy(a_sp, dtype=dtype, device=device)
         b = from_scipy(b_sp, dtype=dtype, device=device)
+        args = plan.device_args(device) if plan is not None else None
+        clock.mark("upload")
         if plan is not None:
-            args = plan.device_args(device)
-            clock.mark("upload")
             c = spgemm_esc_binned(a, b, *args, window=plan.window, out_capacity=out_cap,
                                   symmetric=symmetric, dedup_span=plan.max_run)
             route = "esc_binned"
+        elif wplan is not None:
+            w, tail = wplan
+            c = spgemm_esc_windowed(a, b, window=w, expand_capacity=bucket_capacity(expand),
+                                    tail_capacity=bucket_capacity(tail) if tail else 0,
+                                    out_capacity=out_cap, symmetric=symmetric)
+            route = "esc_windowed"
         else:
-            clock.mark("upload")
-            wplan = windowed_plan(a_sp.nnz, np.diff(b_sp.indptr)[a_sp.indices], expand)
-            clock.mark("windowed_plan")
-            if wplan is not None:
-                w, tail = wplan
-                c = spgemm_esc_windowed(a, b, window=w, expand_capacity=bucket_capacity(expand),
-                                        tail_capacity=bucket_capacity(tail) if tail else 0,
-                                        out_capacity=out_cap, symmetric=symmetric)
-                route = "esc_windowed"
-            else:
-                c = spgemm_esc(a, b, expand_capacity=bucket_capacity(expand),
-                               out_capacity=out_cap, symmetric=symmetric)
-                route = "esc"
+            c = spgemm_esc(a, b, expand_capacity=bucket_capacity(expand),
+                           out_capacity=out_cap, symmetric=symmetric)
+            route = "esc"
         clock.mark("engine")
         out = _to_scipy_f64(c)
         clock.mark("download")
         clock.finish(route)
         return out
-
-    if dense_path_fits((k, n)) and not keep:
+    if route == "dense_chunks":
         out = _sparse_out_chunked_dense(a_sp, b_sp, symmetric, device)
         _set_route("dense_chunks")
         return out
@@ -608,7 +808,8 @@ def _triple_product_host(a_sp, b_sp, compute_full_matrix: int, device) -> np.nda
     m = a_sp.shape[0]
     expand = 2 * expansion_size(a_sp.indices, a_sp.nnz, b_sp.indptr)
     if expand <= get_config().host_compute_limit or _host_route_wins(
-            expand, a_sp, b_sp, device, out_bytes=_value_bytes(a_sp, b_sp, device) * m * m):
+            expand, a_sp, b_sp, device, out_bytes=_value_bytes(a_sp, b_sp, device) * m * m,
+            request="triple", full=bool(compute_full_matrix)):
         c = ((a_sp @ b_sp) @ a_sp.T).toarray()
         upper = np.triu(c)
         _set_route("host")
@@ -628,6 +829,20 @@ def _zero_notice(result):
         print("Multiplication resulted in a zero matrix.")
     elif sp.issparse(result) and result.nnz == 0:
         print("Multiplication resulted in a zero matrix.")
+
+
+def _esc_limit(imem_size) -> int:
+    """The partial-product budget of the ESC rung: ``esc_expand_limit``
+    scaled by ``imem_size`` (1..10, default 5)."""
+    if imem_size is None:
+        imem_size = 5
+    else:
+        try:
+            imem_size = int(imem_size)
+        except (ValueError, TypeError):
+            raise ValueError(f"imem_size must be an integer or None, got {type(imem_size)}")
+    pct = imem_size if 0 < imem_size <= 10 else 10
+    return max(1, get_config().esc_expand_limit * pct // 5)
 
 
 def sparse_matrix_multiply(
@@ -656,15 +871,7 @@ def sparse_matrix_multiply(
     against.  Exact-zero entries of the product are pruned on the dense
     route; ``Config.keep_structure=True`` asks for Gustavson structure.
     """
-    if imem_size is None:
-        imem_size = 5
-    else:
-        try:
-            imem_size = int(imem_size)
-        except (ValueError, TypeError):
-            raise ValueError(f"imem_size must be an integer or None, got {type(imem_size)}")
-    pct = imem_size if 0 < imem_size <= 10 else 10
-    esc_limit = max(1, get_config().esc_expand_limit * pct // 5)
+    esc_limit = _esc_limit(imem_size)
 
     if compute_full_matrix is None:
         compute_full_matrix = 0
@@ -702,7 +909,8 @@ def sparse_matrix_multiply(
         small = expand <= cfg.host_compute_limit and not cfg.force_bsr
         bsr = not small and _bsr_route_ok(matrix_a, device)
         if small or (not bsr and _host_route_wins(expand, matrix_a, matrix_b, device,
-                                                  out_bytes=out_bytes)):
+                                                  out_bytes=out_bytes, request="dense_output",
+                                                  symmetric=symmetric)):
             result = spgemm_host(matrix_a, matrix_b, symmetric, n_partials=expand).toarray()
             _set_route("host")
         elif bsr:

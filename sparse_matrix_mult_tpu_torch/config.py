@@ -53,47 +53,99 @@ class Config:
     # on the host (native Gustavson kernel).
     host_compute_limit: int = 1 << 19
     # Host/device cost model of the scipy-in/scipy-out entry point, above the
-    # hard limit (api._route_costs): the host wins when
+    # hard limit (api._route_costs).  On the CPU it is JAX's formula, term for
+    # term: the host wins when
     #   partials / (host_rate_base * sqrt(reuse))
     #     < link_fixed_s + up_bytes / link_up_bytes_per_s + down_cost,
     # reuse = partials / expected nnz(C).  The download term is the cheaper of
     # packed CSR and the raw panel plus a host pack at host_pack_rate
-    # elements/s.  Each default is what chip_smoke.py phase 20 (cost-model)
-    # measured on one NVIDIA H100 80GB HBM3, 700.00 W, behind its PCIe link,
-    # on a host of 8 CPUs (OMP_NUM_THREADS unset):
-    # spgemm_host's least-squares rate over reuse ~1, ~10 and ~100 (8.1e7,
-    # 7.4e8 and 2.1e9 partials/s: residuals of -48%, +48%, +31%);
+    # elements/s.  On CUDA each side prices the host work of the route it
+    # takes (api._cuda_route_costs) at the rates below.  Every rate is a fit
+    # of chip_smoke.py phase 20 on its own fit points, on the host of one
+    # NVIDIA H100 80GB HBM3, 700.00 W (8 CPUs, OMP_NUM_THREADS unset); the
+    # CUDA ones are the geometric mean of two such runs (PERF.md section 5:
+    # host rates vary up to 2.5x between machines).
+    # JAX's spgemm_host rate, fitted over reuse ~1, ~10 and ~100 (an earlier
+    # run of the same phase);
     host_rate_base: float = 1.572e8
-    # the link as the 2 MiB probe of _calibrate_link measured it late in the
-    # run (a 200 MiB pageable download ran at 2.42e9 B/s, 3.5x below the
-    # probe's rate, the upload at 7.25e9; in a fresh process the probe read
-    # downloads at 6.6e8 B/s);
-    link_fixed_s: float = 2.432e-5
-    link_up_bytes_per_s: float = 7.049e9
-    link_down_bytes_per_s: float = 8.382e9
+    # the link as the probe of _calibrate_link measures it (8 MiB each way,
+    # to and from pinned host memory);
+    link_fixed_s: float = 4.17e-5
+    link_up_bytes_per_s: float = 4.99e10
+    link_down_bytes_per_s: float = 5.78e10
     # dense_pack of the 12,288^2 float32 panel of the dense route.
-    host_pack_rate: float = 9.038e8
+    host_pack_rate: float = 6.585e8
+    # CUDA only.  The CUDA runtime's staging copy of a pageable download,
+    # bytes/s (copies of 64 and 128 MiB into written host memory net of the
+    # link);
+    host_copy_rate: float = 8.008e9
+    # the first writes of a host array past glibc's 32 MiB mmap threshold
+    # (api._MMAP_BYTES), which lands in fresh pages, bytes/s (np.ones of 64
+    # and 128 MiB net of filling a written array); the rates below are net
+    # of it;
+    host_page_rate: float = 5.25e9
+    # from_scipy's host work per uploaded entry, net of the link;
+    host_upload_rate: float = 3.237e8
+    # the ESC engine on the card (windowed, device-resident): a fixed time
+    # (its launches and its one host sync) and partials at esc_engine_rate;
+    esc_fixed_s: float = 1.455e-3
+    esc_engine_rate: float = 2.556e9
+    # spgemm_host as partials / host_partial_rate + output entries
+    # / host_entry_rate (least squares over three products whose output
+    # stays under the mmap threshold) + the fresh pages of a larger output
+    # at host_out_page_rate (its threads fault them in together: slower
+    # than host_page_rate);
+    host_partial_rate: float = 2.35e9
+    host_entry_rate: float = 1.326e8
+    host_out_page_rate: float = 2.043e9
+    # to_scipy and the f64 cast of a packed result already on the host,
+    # entries/s (the ESC routes and the dense route's CSR download);
+    host_csr_rate: float = 2.009e8
+    # windowed_plan (with its gather of B's row lengths), A entries/s;
+    esc_plan_rate: float = 1.012e8
+    # _fetch_full_triu's index rebuild, entries/s;
+    triu_rebuild_rate: float = 6.975e7
+    # an f64 array of m*n elements: the device route's cast of a dense
+    # result, the host route's toarray, np.triu and its mirror, elements/s;
+    host_f64_rate: float = 5.158e8
+    # scipy's csr_matrix of a small dense panel (outputs up to
+    # host_extract_limit), elements/s;
+    dense_csr_rate: float = 3.144e7
+    # scipy's serial SpGEMM, partials/s (the triple's host route).
+    scipy_partial_rate: float = 1.641e8
     # Measure the link of each device at its first routing decision (a
-    # one-element round trip, a 2 MiB download and upload) and price that
-    # device's requests with it in place of the three link_* fields.
+    # one-element round trip, an 8 MiB pinned download and upload) and price
+    # that device's requests with it in place of the three link_* fields.
     auto_calibrate_link: bool = True
     # Partial-product budgets of the ESC engines; the router compares the
     # expansion against them to decide between ESC and the dense route.
     esc_expand_limit: int = 1 << 22
     # Row-binned ESC engine (ops/spgemm_binned.py): lane width (slots sorted
     # together) and slice window of its host plan, and its single-dispatch
-    # budget.  Past ``binned_expand_limit`` the router takes row chunks.
+    # budget.  Past ``binned_expand_limit`` the router takes row chunks.  On
+    # CUDA the ladder skips the binned rung unless ``binned_esc_on_cuda``
+    # (its host planner costs more than the windowed engine it replaces:
+    # 0.21 s against 0.02 s at 2e7 partials on the H100 host), and the
+    # windowed rung takes its budget.
     use_binned_esc: bool = True
+    binned_esc_on_cuda: bool = False
     binned_lane_width: int = 4096
     binned_window: int = 8
     binned_expand_limit: int = 1 << 25
-    # BSR route: block edge of the BSR kernels (K5, K6), and block-sparse
-    # operands -- at most this fraction of A's (block_size x block_size)
-    # blocks occupied -- go through them on CUDA.  The CUDA kernels take 128
-    # only: with another block size CUDA requests keep the dense route, and
-    # only ``force_bsr`` (the plain versions on the CPU) uses it.
+    # BSR route: block edge of the BSR kernels (K5, K6).  A goes through
+    # them on CUDA when at most ``cuda_bsr_occupancy_cutoff`` of its
+    # (block_size x block_size) blocks are occupied; 0 (the default) sends
+    # every CUDA request to the dense route without a scan: chip_smoke.py's
+    # bsr-crossover found the BSR route slower end to end at every occupancy
+    # it measured (0.002-0.25 at 8192^2, 0.002-0.005 at 16,384^2; NVIDIA H100
+    # 80GB HBM3, 700.00 W).  On the route, B goes through K6 when at most
+    # ``bsr_occupancy_cutoff`` (JAX's constant) of its blocks are occupied,
+    # else through K5.  The CUDA kernels take 128 only: with another block
+    # size CUDA requests keep the dense route, and only ``force_bsr`` (the
+    # plain versions on the CPU) uses it.
     block_size: int = 128
     use_bsr: bool = True
+    cuda_bsr_occupancy_cutoff: float = 0.0
     bsr_occupancy_cutoff: float = 0.25
     # Take the BSR route whatever the device and size (the CPU tests run the
     # kernels' plain versions through it).

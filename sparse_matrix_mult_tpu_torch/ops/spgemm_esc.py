@@ -38,7 +38,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..types import CSRMatrix, INDEX_DTYPE
+from ..types import CSRMatrix, INDEX_DTYPE, row_ids_from_indptr
 from ..utils.native import expansion_size
 
 __all__ = [
@@ -55,10 +55,7 @@ _INT32_MAX = int(np.iinfo(np.int32).max)
 
 def _row_ids(indptr: torch.Tensor, nnz: int) -> torch.Tensor:
     """int64 row of each of the first ``nnz`` entries."""
-    rows = indptr.shape[0] - 1
-    counts = (indptr[1:] - indptr[:-1]).long()
-    return torch.repeat_interleave(
-        torch.arange(rows, device=indptr.device), counts, output_size=nnz)
+    return row_ids_from_indptr(indptr, nnz).long()
 
 
 def _b_rows(b: CSRMatrix):

@@ -21,11 +21,29 @@ import torch
 
 from .config import get_config
 
-__all__ = ["CSRMatrix", "bucket_capacity", "from_scipy", "to_scipy", "from_dense"]
+__all__ = ["row_ids_from_indptr", "CSRMatrix", "bucket_capacity", "from_scipy", "to_scipy",
+           "from_dense"]
 
 Shape = Tuple[int, int]
 
 INDEX_DTYPE = torch.int32
+
+
+def row_ids_from_indptr(indptr: torch.Tensor, capacity: int) -> torch.Tensor:
+    """Row id (int32) of every entry position ``0..capacity`` from CSR row
+    pointers, on ``indptr``'s device, with no host sync.
+
+    JAX's marker scatter and inclusive cumsum: ``marker[p]`` counts the rows
+    that end at position ``p`` (empty rows stack markers), so an entry at a
+    row start belongs to that row.  Row ends past ``capacity`` land in a
+    spare slot that the cumsum never reads (JAX drops them).  Positions from
+    ``indptr[-1]`` on count every row end, as in JAX: mask at the call site
+    where padding must map elsewhere.
+    """
+    ends = indptr[1:].long().clamp(max=capacity + 1)
+    marker = torch.zeros(capacity + 2, dtype=INDEX_DTYPE, device=indptr.device)
+    marker.index_add_(0, ends, torch.ones_like(ends, dtype=INDEX_DTYPE))
+    return torch.cumsum(marker[:capacity], 0, dtype=INDEX_DTYPE)
 
 
 def bucket_capacity(n: int, minimum: int = 128) -> int:
@@ -83,16 +101,8 @@ class CSRMatrix:
 
     def row_ids(self) -> torch.Tensor:
         """Row index of every stored entry; padding maps to row 0."""
-        counts = (self.indptr[1:] - self.indptr[:-1]).long()
-        nnz = int(self.nnz)
-        rid = torch.repeat_interleave(
-            torch.arange(self.rows, dtype=INDEX_DTYPE, device=self.device),
-            counts,
-            output_size=nnz,
-        )
-        out = torch.zeros(self.capacity, dtype=INDEX_DTYPE, device=self.device)
-        out[:nnz] = rid
-        return out
+        pos = torch.arange(self.capacity, device=self.device)
+        return torch.where(pos < self.nnz, row_ids_from_indptr(self.indptr, self.capacity), 0)
 
     def todense(self, dtype=None) -> torch.Tensor:
         """Dense ``(rows, cols)`` matrix, duplicate entries summed (plain

@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 from .config import get_config
-from .types import INDEX_DTYPE, bucket_capacity
+from .types import INDEX_DTYPE, bucket_capacity, row_ids_from_indptr
 
 __all__ = ["BSRMatrix", "bsr_from_scipy", "bsr_from_dense", "bsr_to_dense"]
 
@@ -88,16 +88,9 @@ class BSRMatrix:
     def block_rows(self) -> torch.Tensor:
         """Block-row id of every block slot; padding slots map to ``nbr``,
         the dummy block-row of the JAX kernel."""
-        counts = (self.indptr[1:] - self.indptr[:-1]).long()
-        rid = torch.repeat_interleave(
-            torch.arange(self.nbr, dtype=INDEX_DTYPE, device=self.device),
-            counts,
-            output_size=int(self.nblocks),
-        )
-        out = torch.full((self.block_capacity,), self.nbr, dtype=INDEX_DTYPE, device=self.device)
-        kept = self.stored()
-        out[:kept] = rid[:kept]
-        return out
+        pos = torch.arange(self.block_capacity, device=self.device)
+        rid = row_ids_from_indptr(self.indptr, self.block_capacity)
+        return torch.where(pos < self.nblocks, rid, self.nbr)
 
 
 def _tobsr_padded(mat, block_size: int):

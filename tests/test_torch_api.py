@@ -220,6 +220,8 @@ def test_bsr_route_returns_the_product_on_the_cpu(output_format, config):
     blocks = [sp.random(128, 128, density=1.0, random_state=s) for s in range(4)]
     a = sp.block_diag(blocks, format="csr")  # 4 of 16 blocks occupied
     b = sp.random(512, 512, density=0.3, format="csr", random_state=15)
+    assert not api._bsr_route_ok(a, "cuda")  # the H100's cutoff, 0: the dense route
+    config(cuda_bsr_occupancy_cutoff=0.25)
     assert api._bsr_route_ok(a, "cuda") and not api._bsr_route_ok(a, "cpu")
     config(force_bsr=True)
     got = tsmm.sparse_matrix_multiply(a, b, output_format, device="cpu")

@@ -681,12 +681,14 @@ def test_bsr_route_follows_config(config):
     a = sp.block_diag([sp.random(128, 128, density=1.0, random_state=s) for s in range(4)],
                       format="csr")  # 4 of 16 blocks occupied
     uniform = sp.random(600, 600, density=0.3, format="csr", random_state=1)
+    assert not api._bsr_route_ok(a, "cuda")  # the H100's cutoff, 0: never on CUDA
+    tsmm.set_config(cuda_bsr_occupancy_cutoff=0.25)
     assert api._bsr_route_ok(a, "cuda") and not api._bsr_route_ok(a, "cpu")
     assert not api._bsr_route_ok(uniform, "cuda")  # every block occupied: dense route
     assert not api._bsr_route_ok(sp.csr_matrix(a[:255]), "cuda")  # fewer than 2x2 blocks
-    tsmm.set_config(bsr_occupancy_cutoff=0.2)
+    tsmm.set_config(cuda_bsr_occupancy_cutoff=0.2)
     assert not api._bsr_route_ok(a, "cuda")
-    tsmm.set_config(bsr_occupancy_cutoff=0.25, use_bsr=False)
+    tsmm.set_config(cuda_bsr_occupancy_cutoff=0.25, use_bsr=False)
     assert not api._bsr_route_ok(a, "cuda")
     tsmm.set_config(force_bsr=True)
     assert not api._bsr_route_ok(a, "cuda")  # use_bsr off wins

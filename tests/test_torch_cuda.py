@@ -42,7 +42,8 @@ def on_device():
     routes these tests assert; the configuration restored afterwards."""
     saved = tsmm.get_config()
     tsmm.set_config(auto_calibrate_link=False, link_fixed_s=1e-9, link_up_bytes_per_s=1e15,
-                    link_down_bytes_per_s=1e15, host_rate_base=1.0)
+                    link_down_bytes_per_s=1e15, host_rate_base=1.0, host_partial_rate=1.0,
+                    scipy_partial_rate=1.0)
     yield
     tsmm.set_config(saved)
 
@@ -586,13 +587,19 @@ def test_bsr_kernels_reject_other_types_and_block_sizes(cuda):
 @pytest.mark.parametrize("output_format", ["sparse", "dense"])
 def test_bsr_route_on_the_card(cuda, kind, key, output_format):
     """A block-sparse A (4 of 16 blocks) takes route "bsr" through K5 (B
-    uniform) or K6 (B = A), against scipy."""
+    uniform) or K6 (B = A) once the cutoff admits it (the default, 0, sends
+    it to the dense route), against scipy."""
     a = sp.block_diag([sp.random(128, 128, density=1.0, random_state=s) for s in range(4)],
                       format="csr")
     b = a if kind == "bsr_x_bsr" else sp.random(512, 512, density=0.3, format="csr",
                                                 random_state=7)
     before = dict(LAUNCHES)
-    got = tsmm.sparse_matrix_multiply(a, b, output_format, device="cuda")
+    saved = tsmm.get_config()
+    tsmm.set_config(cuda_bsr_occupancy_cutoff=0.25)
+    try:
+        got = tsmm.sparse_matrix_multiply(a, b, output_format, device="cuda")
+    finally:
+        tsmm.set_config(saved)
     assert tsmm.get_last_route() == "bsr"
     assert LAUNCHES[key] > before[key]
     got = got.toarray() if output_format == "sparse" else got
@@ -976,8 +983,8 @@ def test_esc_engines_host_syncs(cuda, engine, syncs):
 
 
 @pytest.mark.parametrize("route,limits", [
-    ("esc_binned", dict()),
-    ("esc_windowed", dict(use_binned_esc=False)),
+    ("esc_binned", dict(binned_esc_on_cuda=True)),
+    ("esc_windowed", dict()),
     ("esc", dict(use_binned_esc=False, dense_path_limit=1000)),
     ("esc_chunks", dict(dense_path_limit=1000, esc_expand_limit=4000, binned_expand_limit=4000)),
     ("dense_chunks", dict(dense_path_limit=150_000, esc_expand_limit=8, binned_expand_limit=8)),

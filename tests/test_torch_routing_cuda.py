@@ -1,0 +1,433 @@
+"""How the router decides on a CUDA device, checked on the CPU: the link
+probe, the CUDA terms of the cost model, the ladder without the binned rung
+and the BSR cutoff with its occupancy scan.
+
+Nothing here needs a card.  A decision is made on the host, so a request
+on ``"cuda"`` is driven here with the uploads kept on the CPU
+(``from_scipy`` pinned to it, the stage clock's synchronize a no-op): every
+engine runs its plain PyTorch version, and the route, the scans and the
+products are those of a CUDA request.  On the CPU the router stays JAX's
+(``tests/test_torch_cost_model.py`` holds it against the JAX package).
+"""
+
+import math
+
+import numpy as np
+import pytest
+import scipy.sparse as sp
+import torch
+
+import sparse_matrix_mult_tpu as jsmm
+import sparse_matrix_mult_tpu_torch as tsmm
+from sparse_matrix_mult_tpu import api as japi
+from sparse_matrix_mult_tpu_torch import api
+from sparse_matrix_mult_tpu_torch.ops.spgemm_binned import BinnedPlan
+from sparse_matrix_mult_tpu_torch.utils.transfer import fine_capacity
+from sparse_matrix_mult_tpu_torch.utils.testing import hypersparse_random
+
+ORACLE = dict(rtol=1e-5, atol=1e-8)
+# A link of 2 ms fixed cost, 5 GB/s up and 2 GB/s down, and round host rates
+# (a pageable download's staging copy at 6 GB/s, fresh pages at 3 GB/s).
+MODEL = dict(auto_calibrate_link=False, host_rate_base=1e8, link_fixed_s=2e-3,
+             link_up_bytes_per_s=5e9, link_down_bytes_per_s=2e9, host_pack_rate=5e8,
+             host_partial_rate=3e9, host_entry_rate=1e8, host_csr_rate=2e8, esc_plan_rate=1.5e8,
+             triu_rebuild_rate=7e7, host_f64_rate=3e8, dense_csr_rate=5e7,
+             scipy_partial_rate=1.5e8, host_copy_rate=6e9, host_page_rate=3e9,
+             host_out_page_rate=1e9, host_upload_rate=4e8,
+             esc_fixed_s=2e-3, esc_engine_rate=2e9)
+
+
+@pytest.fixture
+def config():
+    saved_t, saved_j = tsmm.get_config(), jsmm.get_config()
+    tsmm.set_config(**MODEL)
+    jsmm.set_config(**{k: v for k, v in MODEL.items() if hasattr(jsmm.get_config(), k)})
+    yield tsmm.set_config
+    tsmm.set_config(saved_t)
+    jsmm.set_config(saved_j)
+
+
+@pytest.fixture
+def on_cuda(monkeypatch):
+    """Requests on ``"cuda"`` computed on the CPU: uploads stay there and the
+    stage clock's synchronize does nothing."""
+    real = api.from_scipy
+    monkeypatch.setattr(api, "from_scipy", lambda *a, **kw: real(*a, **{**kw, "device": "cpu"}))
+    real_args = BinnedPlan.device_args
+    monkeypatch.setattr(BinnedPlan, "device_args", lambda plan, device: real_args(plan, "cpu"))
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **kw: None)
+
+
+def _hyper(n=4000, nnz=40_000):
+    return hypersparse_random(n, n, nnz, 1), hypersparse_random(n, n, nnz, 2)
+
+
+def _operands(m, k, n, da, db, seed=0):
+    if m * k > 10**8:  # sp.random samples every cell
+        return (hypersparse_random(m, k, int(m * k * da), seed),
+                hypersparse_random(k, n, int(k * n * db), seed + 1))
+    return (sp.random(m, k, density=da, format="csr", random_state=seed),
+            sp.random(k, n, density=db, format="csr", random_state=seed + 1))
+
+
+# ---------------------------------------------------------------------------
+# A. the link probe
+# ---------------------------------------------------------------------------
+
+
+class FakeClock:
+    """perf_counter that reads out the given durations, one per timed call:
+    each pair of readings spans the next duration."""
+
+    def __init__(self, durations):
+        self.stamps = iter([t for i, d in enumerate(durations) for t in (10.0 * i, 10.0 * i + d)])
+
+    def perf_counter(self):
+        return next(self.stamps)
+
+
+def test_probe_takes_the_least_of_three_warmed_transfers(monkeypatch):
+    """Each term is the least of three timed transfers after an untimed one,
+    the download and upload net of the round trip; the routes' own fetch path
+    is warmed once at the probe's size."""
+    durations = [3e-5, 2e-5, 4e-5,  # round trips
+                 1.3e-3, 1.1e-3, 1.2e-3,  # downloads (pinned host memory on CUDA)
+                 1.6e-3, 1.4e-3, 1.5e-3]  # uploads
+    fetched = []
+    monkeypatch.setattr(api, "time", FakeClock(durations))
+    monkeypatch.setattr(api, "fetch_np", lambda x: fetched.append(x) or x.numpy())
+    monkeypatch.setattr(api, "_LINK_TERMS", {})
+    terms = api._calibrate_link("cpu")
+    assert terms == dict(link_fixed_s=pytest.approx(2e-5),
+                         link_up_bytes_per_s=pytest.approx(api._PROBE_BYTES / (1.4e-3 - 2e-5)),
+                         link_down_bytes_per_s=pytest.approx(api._PROBE_BYTES / (1.1e-3 - 2e-5)))
+    assert [x.numel() * x.element_size() for x in fetched] == [api._PROBE_BYTES]
+    assert api._LINK_TERMS["cpu"] is terms
+
+
+def test_download_prices_the_link_the_copy_and_fresh_pages_on_cuda(config):
+    """A CUDA route's download costs the link, the staging copy and, past the
+    mmap threshold, fresh pages; the CPU's formula, JAX's, has none of the
+    host terms."""
+    a, b = _operands(3000, 3000, 3000, 0.001, 0.001)
+    expand = 30_000
+    base = api._route_costs(expand, a, b, "cuda", request="esc")
+    config(host_copy_rate=1e300)
+    free = api._route_costs(expand, a, b, "cuda", request="esc")
+    nnz = api._est_result_nnz(expand, 3000, 3000)
+    val = api._value_bytes(a, b, "cuda")
+    assert base[0] == free[0]
+    assert base[1] - free[1] == pytest.approx((4 + val) * nnz / 6e9, rel=1e-9)
+    assert api._route_costs(expand, a, b, "cpu", request="esc") == api._route_costs(expand, a, b,
+                                                                                    "cpu")
+
+
+# ---------------------------------------------------------------------------
+# B. the CUDA terms of the cost model
+# ---------------------------------------------------------------------------
+
+
+def _page(*nbytes):
+    return sum(b for b in nbytes if b > 32 << 20) / 3e9
+
+
+def _down(*nbytes):
+    return sum(nbytes) / 2e9 + sum(nbytes) / 6e9 + _page(*nbytes)
+
+
+def _upload(a, b, val_bytes):
+    return 2e-3 + (4 + val_bytes) * (a.nnz + b.nnz) / 5e9 + (a.nnz + b.nnz) / 4e8
+
+
+def _host_side(expand, nnz):
+    return expand / 3e9 + nnz / 1e8 + _page(4 * nnz, 8 * nnz) * 3e9 / 1e9
+
+
+# (request, operands (m, k, n, da, db), symmetric, expansion): each branch of
+# _cuda_route_costs once, and results past the 32 MiB mmap threshold.
+SPARSE_CASES = [
+    ("esc", (3000, 3000, 3000, 0.001, 0.001), False, 30_000),
+    ("esc", (300_000, 3000, 300_000, 1e-4, 1e-4), False, 20_000_000),  # fresh pages
+    ("esc_chunks", (3000, 3000, 3000, 0.001, 0.001), True, 30_000),
+    ("dense", (1500, 1500, 1500, 0.01, 0.01), False, 1_500_000),  # a small panel
+    ("dense", (2500, 2500, 2500, 0.1, 0.1), True, 10**10),  # a full triangle
+    ("dense", (5000, 5000, 5000, 0.1, 0.1), True, 10**11),  # a full triangle, fresh pages
+    ("dense", (2500, 2500, 2500, 0.1, 0.1), False, 10**10),  # the panel downloads
+    ("dense", (2500, 2500, 2500, 0.01, 0.01), False, 6_000_000),  # packed CSR downloads
+    ("dense_chunks", (2500, 2500, 2500, 0.01, 0.01), True, 6_000_000),
+]
+
+
+@pytest.mark.parametrize("request_kind,shape,symmetric,expand", SPARSE_CASES,
+                         ids=[f"{c[0]}_{i}" for i, c in enumerate(SPARSE_CASES)])
+def test_cuda_sparse_costs_are_the_formula(config, request_kind, shape, symmetric, expand):
+    a, b = _operands(*shape)
+    m, n = a.shape[0], b.shape[1]
+    val = api._value_bytes(a, b, "cuda")
+    nnz = api._est_result_nnz(expand, m, n)
+    if symmetric:
+        nnz = nnz * (m + 1) // (2 * m)
+    est_host, est_dev = api._route_costs(expand, a, b, "cuda", request=request_kind,
+                                         symmetric=symmetric)
+    assert est_host == pytest.approx(_host_side(expand, nnz), rel=1e-12)
+    csr = _down(4 * nnz, val * nnz) + nnz / 2e8 + _page(8 * nnz)
+    if request_kind.startswith("esc"):
+        want = (a.nnz / 1.5e8 + 2e-3 + expand / 2e9 + csr
+                + (nnz / 2e8 if request_kind == "esc_chunks" else 0.0))
+    elif m * n <= tsmm.get_config().host_extract_limit:
+        want = _down(val * m * n) + m * n / 3e8 + _page(8 * m * n) + m * n / 5e7
+    elif symmetric and request_kind == "dense" and m * n * math.exp(-expand / (m * n)) < 1:
+        want = _down(val * nnz) + nnz / 3e8 + _page(8 * nnz) + nnz / 7e7
+    elif val * m * n < (4 + val) * fine_capacity(nnz):
+        want = _down(val * m * n) + m * n / 5e8 + _page(4 * nnz, 8 * nnz)
+    else:
+        want = csr
+    if request_kind == "dense_chunks":
+        want += nnz / 2e8
+    assert est_dev == pytest.approx(_upload(a, b, val) + want, rel=1e-12)
+
+
+def test_fresh_pages_past_the_mmap_threshold():
+    assert api._MMAP_BYTES == 32 << 20
+    assert api._fresh(32 << 20, (32 << 20) + 1, 10) == (32 << 20) + 1
+    assert api._fresh() == 0
+
+
+@pytest.mark.parametrize("full", [0, 1])
+def test_cuda_triple_and_dense_output_costs_are_the_formula(config, full):
+    h, q = _operands(800, 600, 600, 0.01, 0.02)
+    m, k = h.shape
+    val = api._value_bytes(h, q, "cuda")
+    expand = 2 * 9000  # JAX's: twice the expansion of H Q
+    hq = api._est_result_nnz(9000, m, k)
+    est_host, est_dev = api._route_costs(expand, h, q, "cuda", out_bytes=val * m * m,
+                                         request="triple", full=bool(full))
+    partials = 9000 + hq * h.nnz / k
+    assert est_host == pytest.approx(partials / 1.5e8 + (4 if full else 2) * m * m / 3e8,
+                                     rel=1e-12)
+    assert est_dev == pytest.approx(_upload(h, q, val) + _down(val * m * m) + m * m / 3e8,
+                                    rel=1e-12)
+    a, b = _operands(700, 500, 900, 0.01, 0.02, seed=4)
+    m, n = a.shape[0], b.shape[1]
+    val = api._value_bytes(a, b, "cuda")
+    nnz = api._est_result_nnz(50_000, m, n)
+    est_host, est_dev = api._route_costs(50_000, a, b, "cuda", out_bytes=val * m * n,
+                                         request="dense_output")
+    assert est_host == pytest.approx(_host_side(50_000, nnz) + m * n / 3e8, rel=1e-12)
+    assert est_dev == pytest.approx(_upload(a, b, val) + _down(val * m * n) + m * n / 3e8,
+                                    rel=1e-12)
+    # A symmetric square output: toarray touches the triangle's half of the pages.
+    a, b = _operands(900, 500, 900, 0.01, 0.02, seed=5)
+    m = n = 900
+    nnz = api._est_result_nnz(50_000, m, n) * (m + 1) // (2 * m)
+    est_host, est_dev = api._route_costs(50_000, a, b, "cuda", out_bytes=val * m * n,
+                                         request="dense_output", symmetric=True)
+    assert est_host == pytest.approx(_host_side(50_000, nnz) + 0.5 * m * n / 3e8, rel=1e-12)
+    assert est_dev == pytest.approx(_upload(a, b, val) + _down(val * m * n) + m * n / 3e8,
+                                    rel=1e-12)
+
+
+@pytest.mark.parametrize("request_kind", ["esc", "dense", "dense_chunks", "esc_chunks",
+                                          "dense_output", "triple"])
+def test_cpu_costs_stay_jax_whatever_the_request(config, request_kind):
+    """On the CPU a named device route changes nothing: JAX's formula, and
+    JAX's decision on both sides of the flip."""
+    a, b = _operands(2000, 500, 3000, 0.001, 0.02)
+    out_bytes = 8 * a.shape[0] * b.shape[1] if request_kind in ("dense_output", "triple") else None
+    decisions = set()
+    for expand in np.unique(np.geomspace(1e3, 1e10, 30).astype(np.int64)):
+        plain = api._route_costs(int(expand), a, b, "cpu", out_bytes)
+        named = api._route_costs(int(expand), a, b, "cpu", out_bytes, request=request_kind,
+                                 symmetric=True, full=True)
+        assert named == plain
+        wins = api._host_route_wins(int(expand), a, b, "cpu", out_bytes, request=request_kind)
+        assert wins == japi._host_route_wins(int(expand), a, b, out_bytes=out_bytes)
+        decisions.add(wins)
+    assert decisions == {True, False}
+
+
+def test_request_costs_name_the_route_the_router_takes(config, on_cuda, monkeypatch):
+    """_request_costs prices each branch with the device route the router
+    then takes on CUDA."""
+    seen = []
+    real = api._route_costs
+
+    def spy(*args, **kw):
+        seen.append(kw.get("request"))
+        return real(*args, **kw)
+
+    monkeypatch.setattr(api, "_route_costs", spy)
+    config(host_compute_limit=0, host_partial_rate=1.0)  # every request stays on the device
+    hyper = _hyper()
+    for (a, b), kw, route in ((_operands(400, 400, 400, 0.05, 0.05), {}, "dense"),
+                              (hyper, {}, "esc_windowed"),
+                              (hyper, dict(output_format="dense"), "dense"),
+                              (_operands(300, 200, 200, 0.05, 0.05),
+                               dict(use_triple_product=True), "triple")):
+        seen.clear()
+        api._request_costs(a, b, "cuda", **kw)
+        tsmm.sparse_matrix_multiply(a, b, device="cuda", **kw)
+        assert tsmm.get_last_route() == route
+        assert len(seen) == 2 and seen[0] == seen[1]
+
+
+# ---------------------------------------------------------------------------
+# C. the ladder on CUDA: the windowed rung, with the binned rung's budget
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def binned_plans(monkeypatch):
+    """The calls of _binned_plan_for; on CUDA it must not be called."""
+    calls = []
+    real = api._binned_plan_for
+
+    def spy(a_sp, b_sp, expand):
+        calls.append(expand)
+        return real(a_sp, b_sp, expand)
+
+    monkeypatch.setattr(api, "_binned_plan_for", spy)
+    return calls
+
+
+@pytest.mark.parametrize("symmetric", [False, True])
+@pytest.mark.parametrize("device,route", [("cpu", "esc_binned"), ("cuda", "esc_windowed")])
+def test_ladder_skips_the_binned_rung_on_cuda(config, on_cuda, binned_plans, device, route,
+                                              symmetric):
+    config(host_compute_limit=0, host_rate_base=1.0, host_partial_rate=1.0)
+    a, b = _hyper()
+    got = tsmm.sparse_matrix_multiply(a, b, symmetric=symmetric, device=device)
+    assert tsmm.get_last_route() == route
+    assert (binned_plans != []) == (device == "cpu")
+    ref = a @ b
+    ref = sp.triu(ref, format="csr") if symmetric else ref.tocsr()
+    ref.sort_indices()
+    np.testing.assert_array_equal(got.indptr, ref.indptr)
+    np.testing.assert_array_equal(got.indices, ref.indices)
+    np.testing.assert_allclose(got.data, ref.data, **ORACLE)
+
+
+def test_binned_rung_stays_reachable_on_cuda(config, on_cuda, binned_plans):
+    config(host_compute_limit=0, host_partial_rate=1.0, binned_esc_on_cuda=True)
+    a, b = _hyper()
+    got = tsmm.sparse_matrix_multiply(a, b, device="cuda")
+    assert tsmm.get_last_route() == "esc_binned" and len(binned_plans) == 1
+    np.testing.assert_allclose(got.toarray(), (a @ b).toarray(), **ORACLE)
+
+
+def test_windowed_rung_takes_the_binned_budget_on_cuda(config, on_cuda, binned_plans):
+    """Between the ESC budget and the binned one: the binned rung on the CPU,
+    the windowed one on CUDA (one dispatch); past the binned budget, the row
+    chunks on both."""
+    a, b = _hyper()
+    expand = int(api.expansion_size(a.indices, a.nnz, b.indptr))
+    config(host_compute_limit=0, host_rate_base=1.0, host_partial_rate=1.0, dense_path_limit=1000,
+           esc_expand_limit=expand // 4, binned_expand_limit=expand * 2)
+    for device, route in (("cpu", "esc_binned"), ("cuda", "esc_windowed")):
+        tsmm.sparse_matrix_multiply(a, b, device=device)
+        assert tsmm.get_last_route() == route
+    config(binned_expand_limit=expand // 2)
+    for device in ("cpu", "cuda"):
+        got = tsmm.sparse_matrix_multiply(a, b, device=device)
+        assert tsmm.get_last_route() == "esc_chunks"
+        np.testing.assert_allclose(got.toarray(), (a @ b).toarray(), **ORACLE)
+
+
+def test_classic_engine_keeps_the_esc_budget_on_cuda(config, on_cuda, binned_plans):
+    """No window qualifies (B's rows are long): within the ESC budget the
+    classic engine, past it the row chunks, as the binned rung's failure
+    sends the CPU there."""
+    a = sp.csr_matrix((np.ones(300), (np.arange(300), np.arange(300) % 40)), shape=(300, 40))
+    b = sp.random(40, 3000, density=0.2, format="csr", random_state=3)
+    expand = int(api.expansion_size(a.indices, a.nnz, b.indptr))
+    assert api.windowed_plan(a.nnz, np.diff(b.indptr)[a.indices], expand) is None
+    config(host_compute_limit=0, host_partial_rate=1.0, dense_path_limit=1000)
+    tsmm.sparse_matrix_multiply(a, b, device="cuda")
+    assert tsmm.get_last_route() == "esc"
+    config(esc_expand_limit=expand // 2, binned_expand_limit=expand * 4)
+    got = tsmm.sparse_matrix_multiply(a, b, device="cuda")
+    assert tsmm.get_last_route() == "esc_chunks" and binned_plans == []
+    np.testing.assert_allclose(got.toarray(), (a @ b).toarray(), **ORACLE)
+
+
+# ---------------------------------------------------------------------------
+# D. the BSR cutoff and the occupancy scan
+# ---------------------------------------------------------------------------
+
+
+class ShapeOnly:
+    """A matrix that has a shape and nothing to scan."""
+
+    shape = (1024, 1024)
+
+
+def test_cutoff_zero_scans_nothing(config):
+    assert tsmm.get_config().cuda_bsr_occupancy_cutoff == 0.0
+    assert not api._bsr_route_ok(ShapeOnly(), "cuda")
+    assert not api._block_sparse(ShapeOnly(), 128, 0.0)
+    config(cuda_bsr_occupancy_cutoff=0.25)
+    with pytest.raises(ValueError):
+        api._bsr_route_ok(ShapeOnly(), "cuda")  # above 0 the scan reads the matrix
+
+
+@pytest.fixture
+def scans(monkeypatch):
+    """The occupancy questions the router asks: (shape, cutoff)."""
+    calls = []
+    real = api._block_sparse
+
+    def spy(mat, block_size, cutoff):
+        calls.append((mat.shape, cutoff))
+        return real(mat, block_size, cutoff)
+
+    monkeypatch.setattr(api, "_block_sparse", spy)
+    return calls
+
+
+@pytest.mark.parametrize("output_format", ["sparse", "dense"])
+def test_dense_route_on_cuda_scans_nothing(config, on_cuda, scans, output_format):
+    """A uniformly sparse request (the headline's kind) on CUDA: the dense
+    route, and no occupancy scan at the cutoff of 0."""
+    config(host_compute_limit=0, host_partial_rate=1.0, host_rate_base=1.0)
+    a, b = _operands(600, 600, 600, 0.3, 0.3, seed=7)
+    got = tsmm.sparse_matrix_multiply(a, b, output_format, symmetric=True, device="cuda")
+    assert tsmm.get_last_route() == "dense"
+    assert all(cutoff == 0.0 for _, cutoff in scans)
+    got = got.toarray() if sp.issparse(got) else got
+    np.testing.assert_allclose(got, np.triu((a @ b).toarray()), **ORACLE)
+
+
+def _occupancy_cases():
+    rng = np.random.default_rng(5)
+    for nbr, nbc, occ in ((8, 8, 0.1), (20, 5, 0.3), (17, 33, 0.05), (40, 40, 0.5), (3, 3, 1.0)):
+        mask = rng.random((nbr, nbc)) < occ
+        dense = np.kron(mask, np.ones((4, 4))) * rng.random((4 * nbr, 4 * nbc))
+        yield sp.csr_matrix(dense[: 4 * nbr - 1])  # a ragged last block-row
+    yield sp.random(300, 200, density=0.01, format="csr", random_state=3)
+    yield sp.csr_matrix((64, 64))
+
+
+@pytest.mark.parametrize("case", range(7))
+def test_early_stop_gives_the_full_scans_answer(case):
+    mat = list(_occupancy_cases())[case]
+    occ = api.block_occupancy(mat, 4)
+    for cutoff in sorted({0.01, 0.05, 0.1, 0.25, 0.5, 0.99, occ, min(occ + 1e-9, 1.0)}):
+        if cutoff > 0:
+            assert api._block_sparse(mat, 4, cutoff) == (occ <= cutoff), (case, cutoff)
+            assert api._block_sparse(mat.tocoo(), 4, cutoff) == (occ <= cutoff)
+
+
+def test_scan_stops_once_past_the_cutoff(monkeypatch):
+    """Every block occupied (16 of 256 a block-row): the scan stops in the
+    group that passes the cutoff, the 5th of 16 at 0.25 and the 1st at 0.05."""
+    groups = []
+    real = np.bincount
+    monkeypatch.setattr(api.np, "bincount", lambda *a, **kw: groups.append(1) or real(*a, **kw))
+    full = sp.csr_matrix(np.ones((64, 64)))
+    for cutoff, read in ((0.25, 5), (0.05, 1)):
+        groups.clear()
+        assert not api._block_sparse(full, 4, cutoff)
+        assert len(groups) == read
+    groups.clear()
+    assert api._block_sparse(sp.csr_matrix(np.eye(64)), 4, 0.25)  # a diagonal: 16 of 256 blocks
+    assert len(groups) == 16
