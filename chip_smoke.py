@@ -152,7 +152,15 @@ Phases, one line each:
                 download), warm, min of 3, the ring's peak device memory,
                 and the single-device port on the same products.  Then one
                 JSON line {"dist": ...}.
- 20. cost-model -- the router's host/device cost model (api._route_costs)
+ 20. fetch -- fetch_np's staged download (two pinned staging buffers)
+                against .cpu().numpy(), bit for bit, at 200 MB in f32, f64
+                and int32, just past a chunk edge and in f32 at 4 KiB, 1,
+                4, 16 and 32 MiB, as it is and cast to f64, on a card that
+                is not current where there are two; both paths timed side
+                by side, and the 200 MB f32 -> f64
+                download through staging buffers of 16, 32 and 64 MiB.
+                Then one JSON line {"fetch": ...} after {"cost_model": ...}.
+     cost-model -- the router's host/device cost model (api._route_costs)
                 fitted on this host and link: the first writes of 64 and
                 128 MiB host arrays (host_page_rate, which the other rates
                 are net of); spgemm_host at reuse ~1, ~10 and ~100 (JAX's
@@ -162,15 +170,16 @@ Phases, one line each:
                 (host_out_page_rate); the windowed engine
                 on the card and from_scipy's uploads; the other host-work
                 rates of the CUDA model, each on its own fit points
-                (to_scipy and the cast, the window plan, the full
-                triangle's index rebuild, f64 panels, csr_matrix of a small
-                panel, scipy's triple, dense_pack, the staging copy of 64
-                and 128 MiB downloads), each with its residuals; the link
-                probe in a fresh process (this script with
-                --cold-cost-model: the cold run) and here (warm), each
-                beside a directly timed 200 MiB pageable download and
-                upload; then [cost-sweep], one line per request (nine
-                and six held out): the model's estimates and pick
+                (to_scipy of a packed result on the card net of the link,
+                the window plan, the full triangle's index rebuild, f64
+                panels, csr_matrix of a small panel, scipy's triple,
+                dense_pack, fetch_np's staged download of 64 and 128 MiB
+                cast to f64, beside it the same kept f32 and a fit pooling
+                both), each with its residuals; the link probe in a fresh process (this
+                script with --cold-cost-model: the cold run) and here
+                (warm), each beside a directly timed 200 MiB download by
+                fetch_np and upload; then [cost-sweep], one line per
+                request (nine and six held out): the model's estimates and pick
                 under this run's fit, the cold run's pick (the same fit)
                 and the committed defaults' pick beside it, the host route,
                 the device route and the model's route, warm, min of 3 (1
@@ -229,7 +238,8 @@ from sparse_matrix_mult_tpu_torch.types_bsr import _tobsr_padded
 from sparse_matrix_mult_tpu_torch.utils.native import (
     dense_pack, expansion_size, spgemm_host)
 from sparse_matrix_mult_tpu_torch.utils.testing import hypersparse_random
-from sparse_matrix_mult_tpu_torch.utils.transfer import fetch_np, fine_capacity
+from sparse_matrix_mult_tpu_torch.utils.transfer import (
+    STAGE_BYTES, fetch_np, fine_capacity, staged_fetch)
 
 from benchmarks_torch.common import (
     ATOL, ON_DEVICE, RTOL, block_sparse, config_set, csr_bytes, csr_on_card, hyper_pair, mirror,
@@ -1882,9 +1892,18 @@ def dist_phases(a_sp, b_sp, esc_pair, name: str, smi: str) -> dict:
 # three branches, and the port's demo on the card.
 # ---------------------------------------------------------------------------
 
-LINK_BYTES = 200 << 20  # the directly timed pageable transfer beside the probe
-# The sizes of the copies (host_copy_rate) and first writes (host_page_rate).
+LINK_BYTES = 200 << 20  # the directly timed fetch_np download beside the probe
+# The sizes of the downloads (host_copy_rate) and first writes (host_page_rate).
 COPY_POINTS = (64 << 20, 128 << 20)
+# fetch_np's staged download against .cpu().numpy() (phase 20's fetch line):
+# 200 MB in each dtype the routes download, just past a chunk edge, and f32
+# from 4 KiB to 32 MiB (where the pageable copy might win); the 200 MB f32
+# download cast to f64 also through staging buffers of each size.
+FETCH_CASES = ((torch.float32, 50_000_000), (torch.float64, 25_000_000),
+               (torch.int32, 50_000_000), (torch.float32, 3 * STAGE_BYTES // 4 + 5),
+               *((torch.float32, nbytes // 4) for nbytes in (
+                   4 << 10, 1 << 20, 4 << 20, 16 << 20, 32 << 20)))
+STAGE_SIZES = (16 << 20, 32 << 20, 64 << 20)
 PICK_MARGIN = 1.15  # a pick is wrong only where the other route is faster by more than this
 SLOW_CALL_S = 0.5  # a sweep call slower than this is timed once after its warm call
 # spgemm_host partials/s at rising reuse (partials per output entry), each
@@ -1910,7 +1929,7 @@ CSR_POINTS = OUT_PAGE_POINTS
 # The windowed engine on the card and the uploads: these and a small pair.
 ENGINE_POINTS = CSR_POINTS + (("hyper_30k", "hyper", 30_000, 120_000, (111, 112)),)
 TRIU_POINTS = (4000, 6000)
-F64_PANEL, F64_PRODUCT = 6000, ("random_4096_d0.005", "random", 4096, 0.005, (91, 92))
+F64_PRODUCT = ("random_4096_d0.005", "random", 4096, 0.005, (91, 92))
 DENSE_CSR_POINTS = (("random_2048_d0.02", "random", 2048, 0.02, (93, 94)),
                     ("random_1024_d0.03", "random", 1024, 0.03, (95, 96)))
 SCIPY_POINTS = (("random_1500_d0.02", "random", 1500, 0.02, (97, 98)),
@@ -1990,9 +2009,9 @@ def host_s(fn, runs: int = PATH_RUNS) -> float:
 
 
 def link_phase() -> dict:
-    """The calibrated link terms beside directly timed LINK_BYTES pageable
-    transfers, and what the probe's terms predict for them (the download
-    with its staging copy and fresh pages at the configured rates)."""
+    """The calibrated link terms beside directly timed LINK_BYTES transfers,
+    and what the probe's terms predict for them (the download by fetch_np
+    with its host copy into fresh pages at the configured rate)."""
     t0 = time.perf_counter()
     terms = dict(api._calibrate_link(DEVICE))
     calibrate_s = time.perf_counter() - t0
@@ -2003,8 +2022,7 @@ def link_phase() -> dict:
     del x, h
     cfg = smt.get_config()
     predicted_down = (terms["link_fixed_s"] + LINK_BYTES / terms["link_down_bytes_per_s"]
-                      + LINK_BYTES / cfg.host_copy_rate
-                      + api._fresh(LINK_BYTES) / cfg.host_page_rate)
+                      + LINK_BYTES / cfg.host_copy_rate)
     predicted_up = terms["link_fixed_s"] + LINK_BYTES / terms["link_up_bytes_per_s"]
     return dict(calibrated=terms, calibrate_s=calibrate_s, bytes=LINK_BYTES,
                 down_s=down_s, down_bytes_per_s=LINK_BYTES / down_s,
@@ -2017,7 +2035,7 @@ def link_line(link: dict) -> str:
     cal = link["calibrated"]
     return (f"link_fixed_s {cal['link_fixed_s']:.3e}, up {cal['link_up_bytes_per_s']:.4e} B/s, "
             f"down {cal['link_down_bytes_per_s']:.4e} B/s (probe {link['calibrate_s']:.4f} s); "
-            f"{LINK_BYTES >> 20} MiB pageable, min of {PATH_RUNS}: down {link['down_s']:.4f} s "
+            f"{LINK_BYTES >> 20} MiB by fetch_np, min of {PATH_RUNS}: down {link['down_s']:.4f} s "
             f"({link['down_bytes_per_s']:.4e} B/s; the probe predicts "
             f"{link['down_predicted_s']:.4f} s, x{link['down_miss']:.2f}), up {link['up_s']:.4f} s "
             f"({link['up_bytes_per_s']:.4e} B/s; predicted {link['up_predicted_s']:.4f} s, "
@@ -2088,21 +2106,85 @@ def host_page_fit() -> dict:
 
 
 def host_copy_fit() -> dict:
-    """host_copy_rate: each COPY_POINTS download of a device tensor into
-    written pageable host memory (the CUDA runtime's staging copy, warm, min of
-    PATH_RUNS) net of what the link terms just calibrated predict for it
-    (:func:`rate_fit`)."""
+    """host_copy_rate: fetch_np of a float32 tensor of each COPY_POINTS size
+    cast to f64, as the routes download their values (the staged download
+    into a fresh result whose pages it faults in; warm, min of PATH_RUNS),
+    net of what the link terms just calibrated predict for it; in bytes of
+    the result per second (:func:`rate_fit`).  The same downloads kept f32
+    (an index or panel download) are timed beside them, and a fit of all
+    the points is kept as ``pooled``, with its residuals."""
     terms = api._calibrate_link(DEVICE)
     points = {}
     for nbytes in COPY_POINTS:
         x = torch.ones(nbytes // 4, dtype=torch.float32, device=DEVICE)
-        dst = torch.zeros(nbytes // 4, dtype=torch.float32)
-        seconds = wall_s(lambda: dst.copy_(x))
-        link_s = terms["link_fixed_s"] + nbytes / terms["link_down_bytes_per_s"]
-        points[f"copy_{nbytes >> 20}_mib"] = dict(bytes=nbytes, seconds=seconds, link_s=link_s,
-                                                  rate=nbytes / max(seconds - link_s, 1e-6))
-        del x, dst
-    return rate_fit(points, "rate")
+        for label, dtype, host_bytes in (("f32", None, nbytes), ("f64", np.float64, 2 * nbytes)):
+            seconds = wall_s(lambda: fetch_np(x, dtype))
+            link_s = terms["link_fixed_s"] + nbytes / terms["link_down_bytes_per_s"]
+            points[f"fetch_{nbytes >> 20}_mib_{label}"] = dict(
+                bytes=nbytes, host_bytes=host_bytes, seconds=seconds, link_s=link_s,
+                rate=host_bytes / max(seconds - link_s, 1e-6))
+        del x
+    cast = {label: p for label, p in points.items() if label.endswith("_f64")}
+    return dict(rate_fit(cast, "rate"), pooled=rate_fit(points, "rate"))
+
+
+def fetch_phase(name: str, smi: str) -> dict:
+    """fetch_np's staged download held against ``.cpu().numpy()`` bit for bit
+    at each FETCH_CASES size, as it is and cast to f64, and on a card that is
+    not current where the machine has two; both paths timed side by side
+    (host clock, synchronised, warm, min of PATH_RUNS), the 200 MB f32 -> f64
+    download also through pinned staging buffers of each STAGE_SIZES size."""
+    t0 = time.perf_counter()
+    rows = {}
+    for dtype, n in FETCH_CASES:
+        gen = torch.Generator(device=DEVICE).manual_seed(n)
+        if dtype == torch.int32:
+            x = torch.randint(-2**31, 2**31 - 1, (n,), dtype=dtype, device=DEVICE, generator=gen)
+        else:
+            x = torch.randn(n, dtype=dtype, device=DEVICE, generator=gen)
+        label = f"{str(dtype)[6:]}_{n}"
+        want = x.cpu().numpy()
+        require(np.array_equal(fetch_np(x), want), f"fetch {label}: staged != .cpu().numpy()")
+        row = dict(bytes=n * x.element_size(), pageable_s=wall_s(lambda: x.cpu().numpy()),
+                   staged_s=wall_s(lambda: fetch_np(x)))
+        if dtype != torch.int32:
+            require(np.array_equal(fetch_np(x, np.float64), want.astype(np.float64)),
+                    f"fetch {label}: staged f64 != .cpu().numpy().astype(f64)")
+            row.update(pageable_f64_s=wall_s(lambda: x.cpu().numpy().astype(np.float64)),
+                       staged_f64_s=wall_s(lambda: fetch_np(x, np.float64)))
+        rows[label] = row
+        del x, want
+    n = FETCH_CASES[0][1]
+    x = torch.randn(n, device=DEVICE, generator=torch.Generator(device=DEVICE).manual_seed(n))
+    stream = torch.cuda.Stream()
+    by_stage = {}
+    for nbytes in STAGE_SIZES:
+        buffers = [torch.empty(nbytes, dtype=torch.uint8, pin_memory=True) for _ in range(2)]
+        by_stage[f"{nbytes >> 20}_mib"] = wall_s(
+            lambda: staged_fetch(x, np.float64, buffers, stream))
+        del buffers
+    del x
+    other = "not checked (one card)"
+    if torch.cuda.device_count() > 1:
+        card = torch.device("cuda", 1)
+        x = torch.randn(n, device=card, generator=torch.Generator(device=card).manual_seed(7))
+        require(torch.cuda.current_device() == 0
+                and np.array_equal(fetch_np(x, np.float64), x.cpu().numpy().astype(np.float64)),
+                "fetch on cuda:1 with cuda:0 current: staged != .cpu().numpy()")
+        other = "cuda:1 with cuda:0 current: identical"
+        del x
+    phase("fetch", t0, f"{name} [{smi}]: fetch_np staged (two {STAGE_BYTES >> 20} MiB pinned "
+          f"buffers) against .cpu().numpy(), identical bits; host clock, min of {PATH_RUNS}: "
+          + "; ".join(
+              f"{label} ({r['bytes'] / 1e6:.1f} MB): pageable {r['pageable_s']:.4f} s, staged "
+              f"{r['staged_s']:.4f} s" + (
+                  f"; cast to f64: pageable + astype {r['pageable_f64_s']:.4f} s, staged "
+                  f"{r['staged_f64_s']:.4f} s" if "staged_f64_s" in r else "")
+              for label, r in rows.items())
+          + f" | {FETCH_CASES[0][1] * 4 / 1e6:.0f} MB f32 -> f64 by staging buffer: "
+          + ", ".join(f"{k} {v:.4f} s" for k, v in by_stage.items()) + f" | another card: {other}")
+    return dict(card=name, nvidia_smi=smi, stage_bytes=STAGE_BYTES, cases=rows,
+                f64_by_stage_buffer_s=by_stage, other_card=other)
 
 
 def device_work_fit() -> dict:
@@ -2140,24 +2222,34 @@ def device_work_fit() -> dict:
                 host_upload_rate=rate_fit(upload, "rate"))
 
 
+def pooled_line(work: dict) -> str:
+    pooled = work["host_copy_rate"]["pooled"]
+    return f"{pooled['rate']:.4e}/s (" + ", ".join(
+        f"{label} {pooled['points'][label]['rate']:.4e}, residual {res:+.3f}"
+        for label, res in pooled["residuals"].items()) + ")"
+
+
 def host_work_fit(sa_sp, sb_sp, page_rate: float) -> dict:
     """The host-work rates of the CUDA cost model, each on its fit points
-    (host clock, warm, min of PATH_RUNS; :func:`rate_fit`; to_scipy's and
-    the f64 passes' net of their arrays' fresh pages at ``page_rate``), and
-    dense_pack's on the SIB_N^2 sibling panel (host_pack_rate, as JAX prices
-    the pack)."""
+    (host clock, warm, min of PATH_RUNS; :func:`rate_fit`; the f64 passes'
+    net of their arrays' fresh pages at ``page_rate``): to_scipy as the
+    routes run it, of a packed result on the card, net of what the link
+    terms just calibrated predict for its bytes; and dense_pack's on the
+    SIB_N^2 sibling panel (host_pack_rate, as JAX prices the pack)."""
+    down_rate = api._calibrate_link(DEVICE)["link_down_bytes_per_s"]
     csr, plan = {}, {}
     for label, kind, n, size, seeds in CSR_POINTS:
         a_sp, b_sp = cost_operands(kind, n, size, seeds)
         expand = expansion_size(a_sp.indices, a_sp.nnz, b_sp.indptr)
-        packed = smt.from_scipy(spgemm_host(a_sp, b_sp), dtype=torch.float32, device="cpu")
+        packed = smt.from_scipy(spgemm_host(a_sp, b_sp), dtype=torch.float32, device=DEVICE)
         nnz = int(packed.nnz)
-        csr[label] = dict(entries=nnz, seconds=host_s(lambda: api._to_scipy_f64(packed)))
+        link_s = 8 * nnz / down_rate
+        csr[label] = dict(entries=nnz, seconds=wall_s(lambda: api._to_scipy_f64(packed)),
+                          link_s=link_s)
         lens = lambda: np.diff(b_sp.indptr)[a_sp.indices]  # noqa: E731
         plan[label] = dict(a_entries=a_sp.nnz,
                            seconds=host_s(lambda: windowed_plan(a_sp.nnz, lens(), expand)))
-        csr[label]["rate"] = nnz / max(csr[label]["seconds"] - api._fresh(8 * nnz) / page_rate,
-                                       1e-6)
+        csr[label]["rate"] = nnz / max(csr[label]["seconds"] - link_s, 1e-6)
         plan[label]["rate"] = a_sp.nnz / plan[label]["seconds"]
         del a_sp, b_sp, packed
     triu = {}
@@ -2170,10 +2262,6 @@ def host_work_fit(sa_sp, sb_sp, page_rate: float) -> dict:
                                      rate=len(values) / seconds)
         del values
     f64 = {}
-    panel = np.ones((F64_PANEL, F64_PANEL), np.float32)
-    f64[f"cast_{F64_PANEL}"] = dict(elements=panel.size,
-                                    seconds=host_s(lambda: panel.astype(np.float64)))
-    del panel
     label, kind, n, size, seeds = F64_PRODUCT
     c_sp = spgemm_host(*cost_operands(kind, n, size, seeds))
     f64[f"toarray_{label}"] = dict(elements=n * n, seconds=host_s(lambda: c_sp.toarray()))
@@ -2356,7 +2444,8 @@ def cost_model_phase(sa_sp, sb_sp, name: str, smi: str) -> dict:
     fit = host_rate_fit()
     dev = device_work_fit()
     work = dict(host_work_fit(sa_sp, sb_sp, page["rate"]), host_page_rate=page,
-                host_out_page_rate=fit["host_out_page_rate"], host_copy_rate=host_copy_fit(),
+                host_out_page_rate=fit["host_out_page_rate"],
+                host_copy_rate=host_copy_fit(),
                 host_upload_rate=dev["host_upload_rate"])
     fitted = dict(host_rate_base=fit["host_rate_base"], host_partial_rate=fit["host_partial_rate"],
                   host_entry_rate=fit["host_entry_rate"], esc_fixed_s=dev["esc_fixed_s"],
@@ -2388,7 +2477,8 @@ def cost_model_phase(sa_sp, sb_sp, name: str, smi: str) -> dict:
                   f"{label} {f['points'][label]['rate']:.4e} "
                   f"({f['points'][label]['seconds']:.4f} s), residual {res:+.3f}"
                   for label, res in f["residuals"].items()) + ")"
-              for key, f in work.items()))
+              for key, f in work.items())
+          + " | host_copy_rate of all its points, f32 too: " + pooled_line(work))
     t1 = time.perf_counter()
     rows, launches = crossover_sweep(fitted, cold)
     wrong = [r["label"] for r in rows if not r["pick_right"]]
@@ -2864,8 +2954,10 @@ def main() -> int:
     dist = dist_phases(a_sp, b_sp, esc_pair, name, smi)
     del esc_pair
 
-    # 20. the router's cost model re-fitted on this host and link, its
-    # crossover sweep, and the demo on the card
+    # 20. fetch_np's staged download against the pageable one; the router's
+    # cost model re-fitted on this host and link, its crossover sweep, and
+    # the demo on the card
+    fetch = fetch_phase(name, smi)
     cost = cost_model_phase(sa_sp, sb_sp, name, smi)
     cost["link_first"] = dict(calibrated=link_first, calibrate_s=calibration_s)
     cost["counted_requests"] = {label: dict(est_host_s=e[0], est_dev_s=e[1],
@@ -2916,6 +3008,7 @@ def main() -> int:
     print(json.dumps({"esc": esc}))
     print(json.dumps({"dist": dist["summary"]}))
     print(json.dumps({"cost_model": cost}))
+    print(json.dumps({"fetch": fetch}))
     phase("total", t_start, "chip_smoke.py, every phase")
     print(json.dumps({"kernels": kernels}))
     print(smi)

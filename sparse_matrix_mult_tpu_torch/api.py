@@ -230,11 +230,10 @@ def _calibrate_link(device) -> dict:
     ``.item()``; the download and upload rates those of ``_PROBE_BYTES``
     copies net of the round trip.  Each is warmed once untimed and timed as
     the least of 3.  On CUDA the copies use pinned host memory: the link
-    alone.  What a pageable fetch adds on the host (the CUDA runtime's
-    staging copy, and the fresh pages a large result lands in, which can
-    cost 10x more in a young process than in an old one on an H100 host) is
-    host work that the CUDA cost model prices apart
-    (``Config.host_copy_rate``, ``host_page_rate``).  Unlike JAX the terms
+    alone.  What :func:`fetch_np` adds on the host (its copy out of the
+    pinned staging ring into a fresh array of the result's dtype, the cast
+    fused in and the fresh pages faulted in) is host work that the CUDA cost
+    model prices apart (``Config.host_copy_rate``).  Unlike JAX the terms
     are kept per device (a CPU calibration must not price a CUDA request),
     not written into the config, and a probe that fails raises.
     """
@@ -258,7 +257,7 @@ def _calibrate_link(device) -> dict:
     one = torch.ones(1, device=dev)
     rtt = best(lambda: (one + 1.0).item())
     x = torch.full((_PROBE_BYTES // 4,), 2.0, dtype=torch.float32, device=dev)
-    fetch_np(x)  # the pageable path as the routes take it, warmed
+    fetch_np(x)  # the staged path as the routes take it, warmed (the ring made)
     host = torch.ones(_PROBE_BYTES // 4, dtype=torch.float32, pin_memory=dev.type == "cuda")
     down_s = best(lambda: host.copy_(x))
     up_s = best(lambda: x.copy_(host))
@@ -353,14 +352,19 @@ def _cuda_route_costs(expand: int, a_sp, b_sp, link: dict, request: str, symmetr
     ``(H Q) H^T`` at ``scipy_partial_rate``; a dense result's f64 passes
     (``toarray``, ``triu``, the mirror) at ``host_f64_rate`` (a symmetric
     output's ``toarray`` touches half its pages).  The device side: the
-    download (the link, then the CUDA runtime's staging copy at
-    ``host_copy_rate``) and what the route does
-    with it on the host: ``to_scipy`` and the cast (``host_csr_rate``), the
-    window plan (``esc_plan_rate``), ``_fetch_full_triu``'s rebuild
-    (``triu_rebuild_rate``), the panel pack (``host_pack_rate``), a small
-    panel's ``csr_matrix`` (``dense_csr_rate``) or a dense result's cast
-    (``host_f64_rate``).  On both sides every host array past
-    ``_MMAP_BYTES`` also pays for its fresh pages (``host_page_rate``).
+    link; each array ``fetch_np`` downloads, its host copy into a fresh
+    array of the result's own dtype (the f64 cast fused into it, its pages
+    faulted in) at ``host_copy_rate`` bytes of that array per second (a
+    result under ``utils.transfer.STAGE_MIN_BYTES`` downloads pageable,
+    within 0.3 ms of that price on an H100 host), but
+    ``to_scipy``'s whole host side, its downloads included, at
+    ``host_csr_rate`` entries/s; and the route's host work: the window plan
+    (``esc_plan_rate``), the chunked routes' stitch (``host_csr_rate``),
+    ``_fetch_full_triu``'s rebuild (``triu_rebuild_rate``), the panel pack
+    (``host_pack_rate``) or a small panel's ``csr_matrix``
+    (``dense_csr_rate``).
+    On both sides every other host array past ``_MMAP_BYTES`` also pays for
+    its fresh pages (``host_page_rate``).
     """
     cfg = get_config()
     m, k = a_sp.shape
@@ -370,10 +374,10 @@ def _cuda_route_costs(expand: int, a_sp, b_sp, link: dict, request: str, symmetr
     def page(*nbytes):
         return _fresh(*nbytes) / cfg.host_page_rate
 
-    def download(*nbytes):
-        total = sum(nbytes)
-        return (total / link["link_down_bytes_per_s"] + total / cfg.host_copy_rate
-                + page(*nbytes))
+    def download(*arrays):
+        # each array: (its bytes on the card, the bytes of the host array it lands in)
+        return (sum(d for d, _ in arrays) / link["link_down_bytes_per_s"]
+                + sum(h for _, h in arrays) / cfg.host_copy_rate)
 
     uploaded = a_sp.nnz + b_sp.nnz
     est_dev = (link["link_fixed_s"] + (4 + val_bytes) * uploaded / link["link_up_bytes_per_s"]
@@ -384,23 +388,22 @@ def _cuda_route_costs(expand: int, a_sp, b_sp, link: dict, request: str, symmetr
         passes = 4 if full else 2  # toarray and triu, then triu(c, 1).T and the sum
         est_host = (partials / cfg.scipy_partial_rate
                     + passes * (m * m / cfg.host_f64_rate + page(8 * m * m)))
-        return est_host, (est_dev + download(val_bytes * m * m) + m * m / cfg.host_f64_rate
-                          + page(8 * m * m))
+        return est_host, est_dev + download((val_bytes * m * m, 8 * m * m))
     slots = m * n
     nnz = _est_result_nnz(expand, m, n)
     if symmetric and m == n:
         nnz = nnz * (m + 1) // (2 * m)  # the upper triangle's share
     est_host = (expand / cfg.host_partial_rate + nnz / cfg.host_entry_rate
                 + _fresh(4 * nnz, 8 * nnz) / cfg.host_out_page_rate)
-    # to_scipy: indices and values down, the values cast to f64, csr_matrix
-    csr_cost = download(4 * nnz, val_bytes * nnz) + nnz / cfg.host_csr_rate + page(8 * nnz)
+    # to_scipy: indices and values over the link, its host side (their staged
+    # copies, the values cast to f64 in theirs, csr_matrix) per entry
+    csr_cost = (4 + val_bytes) * nnz / link["link_down_bytes_per_s"] + nnz / cfg.host_csr_rate
     if request == "dense_output":
-        dense_cost = slots / cfg.host_f64_rate + page(8 * slots)
         # toarray writes the output's entries into zeroed pages: a triangle's
-        # touch half of them; the device route's cast writes every element
+        # touch half of them; the device route's download writes every element
         touched = 0.5 if symmetric and m == n else 1.0
-        return (est_host + touched * dense_cost,
-                est_dev + download(val_bytes * slots) + dense_cost)
+        return (est_host + touched * (slots / cfg.host_f64_rate + page(8 * slots)),
+                est_dev + download((val_bytes * slots, 8 * slots)))
     if request in ("esc", "esc_chunks"):
         est_dev += (a_sp.nnz / cfg.esc_plan_rate + cfg.esc_fixed_s + expand / cfg.esc_engine_rate
                     + csr_cost)
@@ -409,14 +412,15 @@ def _cuda_route_costs(expand: int, a_sp, b_sp, link: dict, request: str, symmetr
         return est_host, est_dev
     panel_bytes = val_bytes * slots
     if request == "dense" and slots <= cfg.host_extract_limit:
-        est_dev += (download(panel_bytes) + slots / cfg.host_f64_rate + page(8 * slots)
-                    + slots / cfg.dense_csr_rate)
+        # the panel cast to f64 in the download, then csr_matrix
+        est_dev += download((panel_bytes, 8 * slots)) + slots / cfg.dense_csr_rate
     elif request == "dense" and symmetric and m == n and slots * np.exp(-expand / slots) < 1:
-        # a full triangle (under one empty slot expected): values only
-        est_dev += (download(val_bytes * nnz) + nnz / cfg.host_f64_rate + page(8 * nnz)
-                    + nnz / cfg.triu_rebuild_rate)
+        # a full triangle (under one empty slot expected): values only, cast
+        # to f64 in the download, then the indices' rebuild
+        est_dev += download((val_bytes * nnz, 8 * nnz)) + nnz / cfg.triu_rebuild_rate
     elif panel_bytes < (4 + val_bytes) * fine_capacity(nnz):
-        est_dev += download(panel_bytes) + slots / cfg.host_pack_rate + page(4 * nnz, 8 * nnz)
+        est_dev += (download((panel_bytes, panel_bytes)) + slots / cfg.host_pack_rate
+                    + page(4 * nnz, 8 * nnz))
     else:
         est_dev += csr_cost
     if request == "dense_chunks":
@@ -511,7 +515,7 @@ def _dense_to_scipy_csr(a_sp, b_sp, symmetric: bool, device):
         c = spgemm_dense_out(a, b, symmetric=symmetric)
         _set_route("dense")
     if m * n <= get_config().host_extract_limit:
-        return csr_matrix(fetch_np(c).astype(np.float64))
+        return csr_matrix(fetch_np(c, np.float64))
 
     nnz = int(torch.count_nonzero(c))  # one scalar fetch; decides the download format
 
@@ -523,10 +527,7 @@ def _dense_to_scipy_csr(a_sp, b_sp, symmetric: bool, device):
     if panel_bytes < csr_bytes:
         return fetch_dense_to_csr(c, symmetric=symmetric, nnz=nnz)
 
-    out = to_scipy(_extract_csr(c, bucket_capacity(nnz), symmetric=symmetric))
-    if out.dtype != np.float64:
-        out = out.astype(np.float64)
-    return out
+    return _to_scipy_f64(_extract_csr(c, bucket_capacity(nnz), symmetric=symmetric))
 
 
 def _fetch_full_triu(c: torch.Tensor, nnz: int):
@@ -542,26 +543,29 @@ def _fetch_full_triu(c: torch.Tensor, nnz: int):
     indptr = fetch_np(csr.indptr)
     if int(indptr[-1]) != nnz:
         raise RuntimeError(f"triu extraction produced {int(indptr[-1])} entries, expected {nnz}")
-    values = fetch_np(csr.values[:nnz]).astype(np.float64)
+    values = fetch_np(csr.values[:nnz], np.float64)
     return _full_triu_csr(values, indptr, m)
 
 
 def _full_triu_csr(values: np.ndarray, indptr: np.ndarray, m: int):
     """scipy CSR of a full (m, m) upper triangle from its values and row
-    pointers: row i holds columns i..m-1, so the indices are rebuilt on the
-    host arithmetically."""
+    pointers: row i holds columns i..m-1, so its indices are a suffix of one
+    ``arange(m)``, written once into one int32 array.  Index arrays that
+    are int32 already spare scipy a scan to choose its index type."""
     nnz = len(values)
-    counts = np.diff(indptr)
-    rows = np.repeat(np.arange(m, dtype=np.int64), counts)
-    indices = (
-        np.arange(nnz, dtype=np.int64) - np.repeat(indptr[:-1].astype(np.int64), counts) + rows
-    ).astype(np.int32)
+    if nnz <= np.iinfo(np.int32).max:
+        indptr = np.asarray(indptr, dtype=np.int32)
+    base = np.arange(m, dtype=np.int32)
+    indices = np.empty(nnz, dtype=np.int32)
+    bounds = indptr.tolist()
+    for i in range(m):
+        indices[bounds[i]:bounds[i + 1]] = base[i:i + bounds[i + 1] - bounds[i]]
     return csr_matrix((values, indices, indptr), shape=(m, m))
 
 
 def _to_scipy_f64(c: CSRMatrix):
-    out = to_scipy(c)
-    return out if out.dtype == np.float64 else out.astype(np.float64)
+    """``to_scipy`` with the values cast to f64 in the download."""
+    return to_scipy(c, np.float64)
 
 
 def _binned_plan_for(a_sp, b_sp, expand: int):
@@ -763,11 +767,9 @@ def _sparse_out_chunked_esc(a_sp, b_sp, symmetric: bool, esc_limit, device, cloc
         else:
             c = spgemm_esc(a_chunk, b, **kw)
         clock.mark("engine")
-        parts.append(to_scipy(c)[:rows_c])
+        parts.append(_to_scipy_f64(c)[:rows_c])
         clock.mark("download")
     out = stitch_csr(parts, m, n)
-    if out.dtype != np.float64:  # the numpy stitch keeps the pieces' dtype
-        out = out.astype(np.float64)
     clock.mark("stitch")
     clock.finish("esc_chunks", chunks=len(bounds) - 1)
     return out
@@ -817,7 +819,7 @@ def _triple_product_host(a_sp, b_sp, compute_full_matrix: int, device) -> np.nda
     dtype, _ = _upload_dtype(a_sp, b_sp, device)
     h = from_scipy(a_sp, dtype=dtype, device=device)
     q = from_scipy(b_sp, dtype=dtype, device=device)
-    result = fetch_np(triple_product_dense(h, q, compute_full_matrix)).astype(np.float64)
+    result = fetch_np(triple_product_dense(h, q, compute_full_matrix), np.float64)
     _set_route("triple")
     return result
 
@@ -915,13 +917,13 @@ def sparse_matrix_multiply(
             _set_route("host")
         elif bsr:
             c = _bsr_product_host(matrix_a, matrix_b, symmetric, device)
-            result = fetch_np(c).astype(np.float64)
+            result = fetch_np(c, np.float64)
             _set_route("bsr")
         else:
             dtype, _ = _upload_dtype(matrix_a, matrix_b, device)
             a = from_scipy(matrix_a, dtype=dtype, device=device)
             b = from_scipy(matrix_b, dtype=dtype, device=device)
-            result = fetch_np(spgemm_dense_out(a, b, symmetric=symmetric)).astype(np.float64)
+            result = fetch_np(spgemm_dense_out(a, b, symmetric=symmetric), np.float64)
             _set_route("dense")
     else:
         raise ValueError("Invalid output_format. Choose 'sparse' or 'dense'.")

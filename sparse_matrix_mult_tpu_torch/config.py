@@ -64,7 +64,10 @@ class Config:
     # of chip_smoke.py phase 20 on its own fit points, on the host of one
     # NVIDIA H100 80GB HBM3, 700.00 W (8 CPUs, OMP_NUM_THREADS unset); the
     # CUDA ones are the geometric mean of two such runs (PERF.md section 5:
-    # host rates vary up to 2.5x between machines).
+    # host rates vary up to 2.5x between machines); host_copy_rate,
+    # host_csr_rate, host_f64_rate and triu_rebuild_rate were re-fitted when
+    # the downloads became staged (two runs in one chip call each, NVIDIA
+    # H100 80GB HBM3, 700.00 W).
     # JAX's spgemm_host rate, fitted over reuse ~1, ~10 and ~100 (an earlier
     # run of the same phase);
     host_rate_base: float = 1.572e8
@@ -75,10 +78,13 @@ class Config:
     link_down_bytes_per_s: float = 5.78e10
     # dense_pack of the 12,288^2 float32 panel of the dense route.
     host_pack_rate: float = 6.585e8
-    # CUDA only.  The CUDA runtime's staging copy of a pageable download,
-    # bytes/s (copies of 64 and 128 MiB into written host memory net of the
-    # link);
-    host_copy_rate: float = 8.008e9
+    # CUDA only.  fetch_np's host copy of a download into a fresh array of
+    # the result's dtype (the f64 cast fused into it, its pages faulted in),
+    # bytes of that array/s (staged downloads of 64 and 128 MiB cast to
+    # f64, net of the link; 5.123e9 and 6.445e9 in the two runs; a fit
+    # pooling the same downloads kept f32 gave 5.368e9 and 9.551e9, its
+    # residuals up to +2.2: a kept copy is faster per byte);
+    host_copy_rate: float = 5.746e9
     # the first writes of a host array past glibc's 32 MiB mmap threshold
     # (api._MMAP_BYTES), which lands in fresh pages, bytes/s (np.ones of 64
     # and 128 MiB net of filling a written array); the rates below are net
@@ -98,16 +104,20 @@ class Config:
     host_partial_rate: float = 2.35e9
     host_entry_rate: float = 1.326e8
     host_out_page_rate: float = 2.043e9
-    # to_scipy and the f64 cast of a packed result already on the host,
-    # entries/s (the ESC routes and the dense route's CSR download);
-    host_csr_rate: float = 2.009e8
+    # to_scipy of a packed result on the card, its whole host side (the
+    # downloads of indices and values, the values cast to f64 in theirs,
+    # csr_matrix) net of the link, entries/s (the ESC routes and the dense
+    # route's CSR download; also the chunked routes' stitch; 5.944e8 and
+    # 1.123e9 in the two runs, whose two points lie up to 3.7x apart);
+    host_csr_rate: float = 8.171e8
     # windowed_plan (with its gather of B's row lengths), A entries/s;
     esc_plan_rate: float = 1.012e8
-    # _fetch_full_triu's index rebuild, entries/s;
-    triu_rebuild_rate: float = 6.975e7
-    # an f64 array of m*n elements: the device route's cast of a dense
-    # result, the host route's toarray, np.triu and its mirror, elements/s;
-    host_f64_rate: float = 5.158e8
+    # _fetch_full_triu's index rebuild (_full_triu_csr), entries/s
+    # (1.246e9 and 8.487e8 in the two runs);
+    triu_rebuild_rate: float = 1.028e9
+    # an f64 array of m*n elements: the host route's toarray, np.triu and
+    # its mirror, elements/s (6.582e8 and 1.623e9 in the two runs);
+    host_f64_rate: float = 1.034e9
     # scipy's csr_matrix of a small dense panel (outputs up to
     # host_extract_limit), elements/s;
     dense_csr_rate: float = 3.144e7

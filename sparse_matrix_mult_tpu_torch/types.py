@@ -163,8 +163,10 @@ def from_scipy(mat, dtype=None, capacity: int | None = None, device=None) -> CSR
     )
 
 
-def to_scipy(mat: CSRMatrix):
-    """Download to an exact (trimmed) scipy ``csr_matrix``."""
+def to_scipy(mat: CSRMatrix, dtype=None):
+    """Download to an exact (trimmed) scipy ``csr_matrix``, its values cast
+    to ``dtype`` in the download (:func:`~.utils.transfer.fetch_np`) when
+    one is given."""
     import scipy.sparse as sp
 
     from .utils.transfer import fetch_np
@@ -172,7 +174,7 @@ def to_scipy(mat: CSRMatrix):
     indptr = fetch_np(mat.indptr)
     nnz = int(indptr[-1])
     indices = fetch_np(mat.indices[:nnz])
-    values = fetch_np(mat.values[:nnz])
+    values = fetch_np(mat.values[:nnz], dtype)
     return sp.csr_matrix((values, indices, indptr), shape=mat.shape)
 
 

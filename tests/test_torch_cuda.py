@@ -1139,3 +1139,48 @@ def test_kernels_on_a_card_that_is_not_current(cuda):
     assert bool(((got - torch.triu(tm.matmul_triu_plain(sq, sq))).abs() <= 1e-5 * unit).all())
     torch.cuda.synchronize(card)
     assert torch.cuda.current_device() == 0
+
+
+# fetch_np's download: 200 MB, just past a chunk edge, and small (pageable
+# below STAGE_MIN_BYTES; the last case staged only when cast), in each dtype
+# the routes download, with and without the f64 cast.
+STAGED_CASES = [(torch.float32, 50_000_000), (torch.float64, 25_000_000),
+                (torch.int32, 50_000_000), (torch.float32, 3 * (32 << 20) // 4 + 5),
+                (torch.int32, 9 * (32 << 20) // 4 + 1), (torch.float32, 0),
+                (torch.float64, 1), (torch.int32, 1000), (torch.float32, (2 << 20) // 8)]
+
+
+@pytest.mark.parametrize("dtype,n", STAGED_CASES,
+                         ids=[f"{str(d)[6:]}_{n}" for d, n in STAGED_CASES])
+def test_staged_fetch_is_the_pageable_download_bit_for_bit(cuda, dtype, n):
+    from sparse_matrix_mult_tpu_torch.utils.transfer import fetch_np
+
+    gen = torch.Generator(device=cuda).manual_seed(n)
+    if dtype == torch.int32:
+        x = torch.randint(-2**31, 2**31 - 1, (n,), dtype=dtype, device=cuda, generator=gen)
+    else:
+        x = torch.randn(n, dtype=dtype, device=cuda, generator=gen)
+    x = x * 3  # queued on the current stream just before the download
+    want = x.cpu().numpy()
+    got = fetch_np(x)
+    assert got.dtype == want.dtype and np.array_equal(got, want)
+    if dtype != torch.int32:
+        cast = fetch_np(x, np.float64)
+        assert cast.dtype == np.float64 and np.array_equal(cast, want.astype(np.float64))
+    x.neg_()
+    again = fetch_np(x)
+    assert np.array_equal(got, want) and np.array_equal(again, -want)
+
+
+def test_staged_fetch_on_a_card_that_is_not_current(cuda):
+    """The staged copies run on the tensor's own card, after its queued work."""
+    from sparse_matrix_mult_tpu_torch.utils.transfer import fetch_np
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two NVIDIA GPUs")
+    torch.cuda.set_device(0)
+    card = torch.device("cuda", 1)
+    x = torch.arange(20_000_000, dtype=torch.float32, device=card) * 0.5
+    got = fetch_np(x, np.float64)
+    assert np.array_equal(got, x.cpu().numpy().astype(np.float64))
+    assert torch.cuda.current_device() == 0

@@ -27,7 +27,7 @@ from sparse_matrix_mult_tpu_torch.utils.testing import hypersparse_random
 
 ORACLE = dict(rtol=1e-5, atol=1e-8)
 # A link of 2 ms fixed cost, 5 GB/s up and 2 GB/s down, and round host rates
-# (a pageable download's staging copy at 6 GB/s, fresh pages at 3 GB/s).
+# (fetch_np's host copy at 6 GB/s, fresh pages at 3 GB/s).
 MODEL = dict(auto_calibrate_link=False, host_rate_base=1e8, link_fixed_s=2e-3,
              link_up_bytes_per_s=5e9, link_down_bytes_per_s=2e9, host_pack_rate=5e8,
              host_partial_rate=3e9, host_entry_rate=1e8, host_csr_rate=2e8, esc_plan_rate=1.5e8,
@@ -106,18 +106,23 @@ def test_probe_takes_the_least_of_three_warmed_transfers(monkeypatch):
 
 
 def test_download_prices_the_link_the_copy_and_fresh_pages_on_cuda(config):
-    """A CUDA route's download costs the link, the staging copy and, past the
-    mmap threshold, fresh pages; the CPU's formula, JAX's, has none of the
-    host terms."""
+    """A CUDA route's download costs the link and the host copy into a fresh
+    array of the result's own dtype (the f64 cast fused into it, the pages
+    faulted in); to_scipy's, the link and its whole host side per entry.
+    The CPU's formula, JAX's, has none of the host terms."""
     a, b = _operands(3000, 3000, 3000, 0.001, 0.001)
     expand = 30_000
-    base = api._route_costs(expand, a, b, "cuda", request="esc")
+    base = api._route_costs(expand, a, b, "cuda", request="dense_output")
+    esc = api._route_costs(expand, a, b, "cuda", request="esc")
     config(host_copy_rate=1e300)
-    free = api._route_costs(expand, a, b, "cuda", request="esc")
-    nnz = api._est_result_nnz(expand, 3000, 3000)
-    val = api._value_bytes(a, b, "cuda")
+    free = api._route_costs(expand, a, b, "cuda", request="dense_output")
     assert base[0] == free[0]
-    assert base[1] - free[1] == pytest.approx((4 + val) * nnz / 6e9, rel=1e-9)
+    assert base[1] - free[1] == pytest.approx(8 * 3000 * 3000 / 6e9, rel=1e-9)
+    assert api._route_costs(expand, a, b, "cuda", request="esc") == esc
+    config(host_csr_rate=1e300)
+    nnz = api._est_result_nnz(expand, 3000, 3000)
+    assert esc[1] - api._route_costs(expand, a, b, "cuda", request="esc")[1] == pytest.approx(
+        nnz / 2e8, rel=1e-9)
     assert api._route_costs(expand, a, b, "cpu", request="esc") == api._route_costs(expand, a, b,
                                                                                     "cpu")
 
@@ -131,8 +136,9 @@ def _page(*nbytes):
     return sum(b for b in nbytes if b > 32 << 20) / 3e9
 
 
-def _down(*nbytes):
-    return sum(nbytes) / 2e9 + sum(nbytes) / 6e9 + _page(*nbytes)
+def _down(*arrays):
+    """Each array as (bytes on the card, bytes of the host array it lands in)."""
+    return sum(d for d, _ in arrays) / 2e9 + sum(h for _, h in arrays) / 6e9
 
 
 def _upload(a, b, val_bytes):
@@ -170,16 +176,16 @@ def test_cuda_sparse_costs_are_the_formula(config, request_kind, shape, symmetri
     est_host, est_dev = api._route_costs(expand, a, b, "cuda", request=request_kind,
                                          symmetric=symmetric)
     assert est_host == pytest.approx(_host_side(expand, nnz), rel=1e-12)
-    csr = _down(4 * nnz, val * nnz) + nnz / 2e8 + _page(8 * nnz)
+    csr = (4 + val) * nnz / 2e9 + nnz / 2e8
     if request_kind.startswith("esc"):
         want = (a.nnz / 1.5e8 + 2e-3 + expand / 2e9 + csr
                 + (nnz / 2e8 if request_kind == "esc_chunks" else 0.0))
     elif m * n <= tsmm.get_config().host_extract_limit:
-        want = _down(val * m * n) + m * n / 3e8 + _page(8 * m * n) + m * n / 5e7
+        want = _down((val * m * n, 8 * m * n)) + m * n / 5e7
     elif symmetric and request_kind == "dense" and m * n * math.exp(-expand / (m * n)) < 1:
-        want = _down(val * nnz) + nnz / 3e8 + _page(8 * nnz) + nnz / 7e7
+        want = _down((val * nnz, 8 * nnz)) + nnz / 7e7
     elif val * m * n < (4 + val) * fine_capacity(nnz):
-        want = _down(val * m * n) + m * n / 5e8 + _page(4 * nnz, 8 * nnz)
+        want = _down((val * m * n, val * m * n)) + m * n / 5e8 + _page(4 * nnz, 8 * nnz)
     else:
         want = csr
     if request_kind == "dense_chunks":
@@ -205,7 +211,7 @@ def test_cuda_triple_and_dense_output_costs_are_the_formula(config, full):
     partials = 9000 + hq * h.nnz / k
     assert est_host == pytest.approx(partials / 1.5e8 + (4 if full else 2) * m * m / 3e8,
                                      rel=1e-12)
-    assert est_dev == pytest.approx(_upload(h, q, val) + _down(val * m * m) + m * m / 3e8,
+    assert est_dev == pytest.approx(_upload(h, q, val) + _down((val * m * m, 8 * m * m)),
                                     rel=1e-12)
     a, b = _operands(700, 500, 900, 0.01, 0.02, seed=4)
     m, n = a.shape[0], b.shape[1]
@@ -214,7 +220,7 @@ def test_cuda_triple_and_dense_output_costs_are_the_formula(config, full):
     est_host, est_dev = api._route_costs(50_000, a, b, "cuda", out_bytes=val * m * n,
                                          request="dense_output")
     assert est_host == pytest.approx(_host_side(50_000, nnz) + m * n / 3e8, rel=1e-12)
-    assert est_dev == pytest.approx(_upload(a, b, val) + _down(val * m * n) + m * n / 3e8,
+    assert est_dev == pytest.approx(_upload(a, b, val) + _down((val * m * n, 8 * m * n)),
                                     rel=1e-12)
     # A symmetric square output: toarray touches the triangle's half of the pages.
     a, b = _operands(900, 500, 900, 0.01, 0.02, seed=5)
@@ -223,7 +229,7 @@ def test_cuda_triple_and_dense_output_costs_are_the_formula(config, full):
     est_host, est_dev = api._route_costs(50_000, a, b, "cuda", out_bytes=val * m * n,
                                          request="dense_output", symmetric=True)
     assert est_host == pytest.approx(_host_side(50_000, nnz) + 0.5 * m * n / 3e8, rel=1e-12)
-    assert est_dev == pytest.approx(_upload(a, b, val) + _down(val * m * n) + m * n / 3e8,
+    assert est_dev == pytest.approx(_upload(a, b, val) + _down((val * m * n, 8 * m * n)),
                                     rel=1e-12)
 
 
