@@ -7,8 +7,9 @@ Phases, one line each:
   1. card    -- device name, nvidia-smi name/power limit, TF32 switched off;
   2. build   -- nvcc builds csrc/*.cu from the checkout (ptxas report shown),
                 and the HGMMA (tensor-core) and UTMALDG (TMA) instructions of
-                K1, K5 and K6 and the UBLKCP (bulk copy) instructions of K3
-                and K7 are counted in the SASS (cuobjdump -sass);
+                K1, matmul_full, K5 and K6 and the UBLKCP (bulk copy)
+                instructions of K3 and K7 are counted in the SASS
+                (cuobjdump -sass);
   3. kernels -- each hand-written kernel against its plain PyTorch version
                 on the card, at the shapes the main path gives it, with both
                 times, the largest difference, the kernel's bound (bytes or
@@ -23,7 +24,21 @@ Phases, one line each:
                 to the other, each within 1e-5 of (|A| |B|) of its plain
                 version, split3's bits unlike HIGHEST's; K1's two splits
                 and its GEMM alone timed in one window; the bf16 split K1
-                starts with, bit for bit; K2 and K4 bit for bit against
+                starts with, bit for bit; matmul_full (the JAX package's
+                HIGHEST f32 jnp.dot) at every product of the counted main
+                path -- the 12,288^2 A B, the triple's 10k H Q on the pieces
+                H shares with K1, the inversion's Q H^T (16,384^2 times
+                4,096 x 16,384 transposed), posterior_covariance's
+                (Q H^T) K^T, both chunks' products of request (e), a ring
+                slot's 2,500 x 2,500 x 10,000 contraction and slot 0's first
+                contraction of each ring of the distributed dense triple --
+                each the bits of its GEMM alone, its upper tiles K1's bits
+                on the same pieces, within 1e-6 of (|A| |B|) of the six
+                passes of its pieces summed in f64, and 1e-5 of its plain
+                version and of FP32 torch.matmul, timed whole and alone
+                beside its plain
+                version, cuBLAS FP32 and the six-pass bound (faster than
+                cuBLAS at 12,288^2 and 10k); K2 and K4 bit for bit against
                 their plain version at every product the counted requests
                 extract (each chunk's product of request (e) of phase 13
                 among them; the BSR request's triangle in phase 7);
@@ -36,7 +51,8 @@ Phases, one line each:
                 the headline (10,000^2, density 0.1, symmetric=True), a
                 non-symmetric product at 12,288^2, density 0.006 (~36% dense,
                 extracted by K4), and dense output at 10k.  Route "dense",
-                launches per request, and each result against its oracle;
+                launches per request (the last two: matmul_full and
+                split_bf16 x2), and each result against its oracle;
      fast    -- one counted request multiply(symmetric=True,
                 precision="fast") at the headline: K1's split3 branch
                 through the API, against the f64 oracle;
@@ -85,14 +101,17 @@ Phases, one line each:
  11. triple  -- the triple product H Q H^T through sparse_matrix_multiply
                 (use_triple_product=True, compute_full_matrix 0 and 1; H the
                 headline A, Q 10k^2 d=0.1), counted: route "triple", K3 x2,
-                split_bf16 x2 and K1 per request, each result against an
+                split_bf16 x3 (H once), matmul_full and K1 per request, and
+                nothing else, each result against an
                 f64 oracle on the card; then (triple-timing, triple-stages)
                 end to end and device-resident triple_product (also with
                 precision="fast"), warm, min of 3, K1's transpose_b form in
                 both branches against its plain version (as in phase 3) at
                 the second contraction, and the time per stage;
  12. inversion -- invert and posterior_covariance at n_obs 4,096, n_state
-                16,384, counted (K3 x4, split_bf16 x2 and K1 per call),
+                16,384, counted (K3 x4, the triple's split_bf16 x3,
+                matmul_full and K1, and Q H^T's split_bf16 x2 and
+                matmul_full per call; posterior_covariance also (Q H^T) K^T's),
                 against an f64 oracle on the card computed
                 with torch.linalg (x_post, p_diag, S and the posterior
                 covariance within 1e-3 of each one's largest entry), with
@@ -108,7 +127,8 @@ Phases, one line each:
                 with one entry per row times 50,000^2 at d = 0.002 ("esc"),
                 (d) 1,000,000^2 with nnz 7e6 per operand ("esc_chunks", its
                 chunk count shown), (e) 30,000 x 10,000 at d = 0.002 times
-                10,000^2 at d = 0.01 ("dense_chunks": K3 and K4 per chunk);
+                10,000^2 at d = 0.01 ("dense_chunks": K3, split_bf16 x2,
+                matmul_full and K4 per chunk);
                 the ESC requests launch no hand kernel.  Each product
                 against scipy's (identical structure, values within the
                 oracle); (a) twice gives the same bits;
@@ -132,8 +152,9 @@ Phases, one line each:
                 blocks between slots; no bytes cross between cards), each
                 window counted: 15. dist-dense -- the dense ring and the CSR
                 ring (balance "rows" and "flops") at the 10k^2 d=0.1
-                symmetric headline, K3 on each slot's A panel and B block
-                and K4 on each slot's C panel, each result slot by slot
+                symmetric headline, K3 on each slot's A panel and B block,
+                matmul_full (and split_bf16 x2) on each of the DIST_SLOTS^2
+                contractions and K4 on each slot's C panel, each result slot by slot
                 against the f64 oracle (the CSR ones also through
                 to_scipy()), no slot densifying more than its own rows, and
                 K3 and K4 bit for bit against their plain versions at every
@@ -142,7 +163,9 @@ Phases, one line each:
                 spgemm_host and the single-device multiply (identical
                 structure), and request (a)'s pair on 3 slots (an odd
                 ring); 17. dist-triple -- the dense triple product at the
-                inversion's H and Q (compute_full_matrix 0 and 1) and the
+                inversion's H and Q (compute_full_matrix 0 and 1; K3 on each
+                slot's H panel and Q block, matmul_full on each contraction
+                of its two rings) and the
                 sparse one at H 20,000 x 1,000,000 (200 per row) with Q the
                 1M^2 operand, each slot against an f64 oracle, the sparse
                 one twice with the same bits; 18. dist-io -- save_partitioned
@@ -227,10 +250,12 @@ from sparse_matrix_mult_tpu_torch.ops.dense_path import _split3_within_oracle, s
 from sparse_matrix_mult_tpu_torch.ops.kernels import LAUNCHES, _build, reset_launches
 from sparse_matrix_mult_tpu_torch.ops.kernels import bsr_spgemm as kb
 from sparse_matrix_mult_tpu_torch.ops.kernels import convert_kernels as ck
+from sparse_matrix_mult_tpu_torch.ops.kernels import full_matmul as fm
 from sparse_matrix_mult_tpu_torch.ops.kernels import triu_matmul as tm
 from sparse_matrix_mult_tpu_torch.ops.matmul import full_fp32
 from sparse_matrix_mult_tpu_torch.ops.spgemm_binned import spgemm_esc_binned
 from sparse_matrix_mult_tpu_torch.ops.spgemm_esc import windowed_plan
+from sparse_matrix_mult_tpu_torch.ops.triple_product import triple_product_dense
 from sparse_matrix_mult_tpu_torch.models.inversion import invert, posterior_covariance
 from sparse_matrix_mult_tpu_torch.parallel import distributed as td
 from sparse_matrix_mult_tpu_torch.parallel.mesh import row_mesh
@@ -292,6 +317,12 @@ SPLIT3_ERR_RATIO = 2.0  # split3's max rel err vs f64 at least this times HIGHES
 # (K5's K ~ 830: f32 rounding is far below it, the three passes of split3
 # ~3e-6 above it).
 K5_PIECES_TOL = 1e-6
+# matmul_full (the JAX package's HIGHEST jnp.dot) against the six passes of
+# its own pieces summed in f64, in units of |A| |B|; against its plain
+# version (the same six passes, each an FP32 cuBLAS product, whose own
+# rounding reaches 3.6e-6 of |A| |B| at posterior_covariance's (Q H^T) K^T
+# on an H100) and FP32 torch.matmul RTOL, as K1 against its plain version.
+FULL_PIECES_TOL = 1e-6
 # K1's split3 branch against the f64 oracle at the configurations of
 # benchmarks/results_accuracy_tpu.json (seeds 1 and 2, as benchmarks/accuracy.py).
 SPLIT3_CONFIGS = ((500, 0.3), (2000, 0.05), (N, DENSITY))
@@ -307,6 +338,9 @@ KERNELS = {
     # launch-counter key: (name, source, replaced TPU kernel)
     "matmul_triu": ("K1 matmul_triu", "sparse_matrix_mult_tpu_torch/csrc/triu_matmul.cu",
                     "sparse_matrix_mult_tpu/ops/pallas/triu_matmul.py:58"),
+    "matmul_full": ("matmul_full (HIGHEST f32 GEMM)",
+                    "sparse_matrix_mult_tpu_torch/csrc/full_matmul.cu",
+                    "sparse_matrix_mult_tpu/ops/matmul.py:58"),
     "split_bf16": ("split_bf16 (K1's operand split)",
                    "sparse_matrix_mult_tpu_torch/csrc/triu_matmul.cu",
                    "sparse_matrix_mult_tpu/ops/pallas/triu_matmul.py:71"),
@@ -493,6 +527,137 @@ def k1_timed(a, b, transpose_b: bool, split3: bool, library_ms: float, m: int, n
     return dict(ms=event_ms(lambda: tm.matmul_triu(a, b, transpose_b, split3)),
                 plain_ms=event_ms(lambda: tm.matmul_triu_plain(a, b, transpose_b, split3)),
                 library_ms=library_ms, **k1_bound(m, n, k, split3))
+
+
+def full_bound(m: int, n: int, k: int) -> dict:
+    """matmul_full's bound: six bf16 passes of its 2 m n k flops at the bf16
+    peak, or its f32 operands read and result written."""
+    return dict(roofline(4.0 * (m * k + k * n + m * n), 6 * 2.0 * m * n * k, "bf16"),
+                flops_f32=2.0 * m * n * k)
+
+
+def six_passes_f64(ap, bp, m: int, n: int) -> torch.Tensor:
+    """The six passes of the bf16 pieces summed in f64 on the card (a check
+    only): each product of two pieces exact, the sums rounded to f64."""
+    out = torch.zeros((m, n), dtype=torch.float64, device=ap.device)
+    for pa, pb in ((2, 0), (1, 1), (0, 2), (1, 0), (0, 1), (0, 0)):
+        out += ap[pa, :m].double() @ bp[pb, :n].double().T
+    return out
+
+
+def full_at(a, b, transpose_b: bool = False, pieces=None, faster: bool = False) -> dict:
+    """matmul_full on (a, b) at one of the main path's shapes, on the pieces
+    ``pieces`` (A's, B's) where the path shares them: the whole call the
+    bits of its GEMM alone on those pieces; its upper tiles bit for bit K1's
+    GEMM on the same pieces; within FULL_PIECES_TOL of (|A| |B|) of the six
+    passes of the pieces summed in f64, and RTOL of its plain version and of
+    FP32 torch.matmul.  Then the whole call, its GEMM alone, the plain
+    version and FP32 torch.matmul timed, beside the six-pass bound; with
+    ``faster`` the whole call must beat FP32 torch.matmul."""
+    m, k = a.shape
+    n = b.shape[0] if transpose_b else b.shape[1]
+    bt = b.T if transpose_b else b
+    ap, bp = pieces or (tm.split_bf16(a, 3), tm.split_bf16(b, 3, transpose=not transpose_b))
+    label = f"matmul_full {m}x{k} . {k}x{n}"
+    got = fm.matmul_full_pieces(ap, bp, m, n)
+    require(torch.equal(got, fm.matmul_full(a, b, transpose_b)),
+            f"{label}: the whole call differs from its GEMM on the pieces")
+    upper = (torch.arange(m, device=a.device)[:, None] // tm.TILE
+             <= torch.arange(n, device=a.device) // tm.TILE)
+    require(torch.equal(got[upper], tm.matmul_triu_pieces(ap, bp, m, n)[upper]),
+            f"{label}: the upper tiles differ from K1's on the same pieces")
+    del upper
+    unit = fp32_matmul(a.abs(), bt.abs()).clamp_min(1e-30)
+    pieces_rel_err = float(((got - six_passes_f64(ap, bp, m, n)).abs() / unit).max())
+    err = (got - fm.matmul_full_pieces_plain(ap, bp, m, n)).abs()
+    max_abs_err, plain_rel_err = float(err.max()), float((err / unit).max())
+    err = (got - fp32_matmul(a, bt)).abs()
+    fp32_rel_err = float((err / unit).max())
+    del err, unit, got
+    require(pieces_rel_err <= FULL_PIECES_TOL, f"{label}: {pieces_rel_err:.3e} of |A||B| from "
+            f"the six passes of its pieces (f64), above {FULL_PIECES_TOL}")
+    require(plain_rel_err <= RTOL, f"{label}: {plain_rel_err:.3e} of |A||B| from its plain "
+            f"version, above {RTOL}")
+    require(fp32_rel_err <= RTOL, f"{label}: {fp32_rel_err:.3e} of |A||B| from FP32 "
+            f"torch.matmul, above {RTOL}")
+    r = dict(shape=[m, k, n], transpose_b=transpose_b, max_abs_err=max_abs_err,
+             pieces_rel_err=pieces_rel_err, plain_rel_err=plain_rel_err,
+             fp32_rel_err=fp32_rel_err,
+             ms=event_ms(lambda: fm.matmul_full(a, b, transpose_b)),
+             gemm_ms=event_ms(lambda: fm.matmul_full_pieces(ap, bp, m, n)),
+             plain_ms=event_ms(lambda: fm.matmul_full_plain(a, b, transpose_b)),
+             library_ms=event_ms(lambda: fp32_matmul(a, bt)), **full_bound(m, n, k))
+    require(r["ms"] < r["library_ms"] or not faster,
+            f"{label}: {r['ms']:.3f} ms, not faster than FP32 torch.matmul ({r['library_ms']:.3f})")
+    return r
+
+
+def full_line(label: str, r: dict) -> str:
+    return (f"matmul_full {label} {'x'.join(map(str, r['shape']))}"
+            f"{' (B as N x K)' if r['transpose_b'] else ''}: {timing(r)}; GEMM alone "
+            f"{r['gemm_ms']:.3f} ms ({r['bound_ms'] / r['gemm_ms']:.1%} of the six-pass bound); "
+            f"against the six passes of its pieces (f64) {r['pieces_rel_err']:.2e} of |A||B| "
+            f"(limit {FULL_PIECES_TOL:.0e}), against its plain version {r['plain_rel_err']:.2e} "
+            f"and FP32 torch.matmul {r['fp32_rel_err']:.2e} (limit {RTOL:.0e}); upper tiles bit "
+            f"for bit K1's")
+
+
+def dense_f32(mat) -> torch.Tensor:
+    """A scipy CSR matrix as a dense f32 tensor on the card (K3)."""
+    return csr_to_dense(smt.from_scipy(mat, dtype=torch.float32, device=DEVICE))
+
+
+def full_main_shapes(ad, bd, sa_sp, sb_sp, dc_a_sp, dc_b_sp) -> dict:
+    """:func:`full_at` at every shape the counted main path gives matmul_full,
+    on operands formed as the path forms them: the non-symmetric 12,288^2
+    A B; the triple's 10k H Q on the pieces H shares with K1; the
+    inversion's Q H^T and posterior_covariance's (Q H^T) K^T (K^T by the
+    Cholesky solve of S = H Q H^T + diag(R)); each chunk's product of the
+    dense-chunks request (e); a ring slot's contraction of the distributed
+    dense product (slot 0's A columns of block 1 against B's block 1); and
+    slot 0's first contraction of each ring of the dense distributed triple
+    at the inversion's H and Q (ring 1: H's panel columns times a Q block;
+    ring 2: T's panel times H's panel transposed)."""
+    shapes = {}
+    x, y = dense_f32(sa_sp), dense_f32(sb_sp)
+    shapes[f"nonsym_a_b_{SIB_N}"] = full_at(x, y, faster=True)
+    x = dense_f32(sp.random(N, N, density=DENSITY, format="csr", random_state=TRIPLE_Q_SEED))
+    shapes[f"triple_h_q_{N}"] = full_at(
+        ad, x, pieces=(tm.split_bf16(ad, 3), tm.split_bf16(x, 3, transpose=True)), faster=True)
+    h_sp, q_sp, _, _, r_diag = inversion_problem()
+    x, y = dense_f32(h_sp), dense_f32(q_sp)
+    shapes[f"inversion_q_ht_{INV_STATE}x{INV_OBS}"] = full_at(y, x, transpose_b=True)
+    qht = fm.matmul_full(y, x, transpose_b=True)
+    h = smt.from_scipy(h_sp, dtype=torch.float32, device=DEVICE)
+    q = smt.from_scipy(q_sp, dtype=torch.float32, device=DEVICE)
+    s = triple_product_dense(h, q, compute_full_matrix=1) + torch.diag(
+        torch.from_numpy(r_diag).to(DEVICE, torch.float32))
+    with full_fp32():
+        kt = torch.cholesky_solve(qht.T, torch.linalg.cholesky(s)).contiguous()
+    shapes[f"covariance_qht_kt_{INV_STATE}x{INV_OBS}"] = full_at(qht, kt)
+    del x, y, qht, s, kt
+    b = dense_f32(dc_b_sp)
+    for start, stop in dense_chunk_bounds(dc_a_sp, DCHUNKS_K):
+        shapes[f"dense_chunk_{start}_{stop}"] = full_at(dense_f32(dc_a_sp[start:stop]), b)
+    del b
+    rows = -(-N // DIST_SLOTS)
+    shapes[f"ring_slot_{rows}x{rows}x{N}"] = full_at(
+        ad[:rows, rows:2 * rows].contiguous(), bd[rows:2 * rows].contiguous())
+    mesh = dist_mesh()
+    hs, qs = td.shard_csr(h_sp, mesh), td.shard_csr(q_sp, mesh)
+    kb, rows_pad = qs.rows_pad, hs.rows_pad
+    require(DIST_SLOTS * kb == INV_STATE, "the triple's rings pad K: form the panels as they do")
+    h0 = td._local_dense(hs.indptrs[0], hs.indices[0], hs.values[0], rows_pad, INV_STATE)
+    q_blocks = [td._local_dense(qs.indptrs[j], qs.indices[j], qs.values[j], kb, INV_STATE)
+                for j in range(DIST_SLOTS)]
+    t0 = torch.zeros((rows_pad, INV_STATE), dtype=torch.float32, device=DEVICE)
+    for j, block in enumerate(q_blocks):
+        t0 += fm.matmul_full(h0[:, j * kb:(j + 1) * kb].contiguous(), block)
+    shapes[f"dist_triple_ring1_{rows_pad}x{kb}x{INV_STATE}"] = full_at(
+        h0[:, :kb].contiguous(), q_blocks[0])
+    shapes[f"dist_triple_ring2_{rows_pad}x{INV_STATE}x{rows_pad}"] = full_at(
+        t0, h0, transpose_b=True)
+    return shapes
 
 
 def sparse_csr(ptr, idx, val, shape):
@@ -1026,9 +1191,8 @@ def triple_phase(h_sp, q_sp, name: str, smi: str):
     for cfm, label in enumerate(labels):
         got, route = results.pop(label), routes[label]
         require(route == "triple", f"{label}: route {route!r} != 'triple'")
-        require(per_call[label]["csr_to_dense"] == 2 and per_call[label]["matmul_triu"] == 1
-                and per_call[label]["split_bf16"] == 2,
-                f"{label}: launches {per_call[label]}, not K3 x2, split_bf16 x2 and K1")
+        only_kernels(label, per_call[label], {"csr_to_dense": 2, "split_bf16": 3,
+                                              "matmul_full": 1, "matmul_triu": 1})
         got = torch.from_numpy(got).to(DEVICE)
         require(tuple(got.shape) == (N, N) and bool(torch.isfinite(got).all()),
                 f"{label}: not a finite {N}^2 result")
@@ -1116,10 +1280,11 @@ def inversion_phase(name: str, smi: str):
         (label_cov, lambda _: posterior_covariance(h, q, r_t)),
     ], results)
     launches = dict(LAUNCHES)
-    for label in (label_inv, label_cov):
-        require(per_call[label]["matmul_triu"] == 1 and per_call[label]["csr_to_dense"] == 4
-                and per_call[label]["split_bf16"] == 2,
-                f"{label}: launches {per_call[label]}, not K3 x4, split_bf16 x2 and K1")
+    # Each call: the triple (K3 x2, H's, Q's and T's splits, matmul_full on
+    # the pieces, K1), K3 x2 and Q H^T; posterior_covariance also (Q H^T) K^T.
+    for label, full in ((label_inv, 2), (label_cov, 3)):
+        only_kernels(label, per_call[label], {"csr_to_dense": 4, "split_bf16": 1 + 2 * full,
+                                              "matmul_full": full, "matmul_triu": 1})
 
     h64, q64 = csr_on_card(h_sp, DEVICE), csr_on_card(q_sp, DEVICE)
     y64, x064, r64 = (torch.from_numpy(v).to(DEVICE) for v in (y, x0, r_diag))
@@ -1244,7 +1409,7 @@ def esc_main_phase(ops: dict):
         dense_chunks = route == "dense_chunks"
         for key in KERNELS:
             launched = per_request[label][key]
-            if dense_chunks and key == "csr_to_dense":
+            if dense_chunks and key in ("csr_to_dense", "matmul_full", "split_bf16"):
                 require(launched > 0, f"{label} launched no {KERNELS[key][0]}")
             elif not dense_chunks:
                 require(launched == 0, f"{label} launched {KERNELS[key][0]}")
@@ -1564,7 +1729,9 @@ def dist_dense_phase(a_sp, b_sp) -> dict:
     k4_map = {labels[1]: (lab_c,) * DIST_SLOTS, labels[2]: (lab_cf,) * DIST_SLOTS}
     for label in labels:
         only_kernels(label, per_call[label], {"csr_to_dense": 2 * DIST_SLOTS,
-                                              "dense_to_csr": len(k4_map.get(label, ()))})
+                                              "dense_to_csr": len(k4_map.get(label, ())),
+                                              "matmul_full": DIST_SLOTS**2,
+                                              "split_bf16": 2 * DIST_SLOTS**2})
     require(len(shapes) == 6 * DIST_SLOTS and max(r for r, _ in shapes) < N,
             f"a slot densified a full operand: panel shapes {sorted(set(shapes))}")
     require(results[labels[2]].row_bounds == flop_bounds, "flop bounds differ")
@@ -1702,8 +1869,11 @@ def dist_triple_phase(q_sparse) -> dict:
     ph, pq = td.shard_csr(h_sp, mesh), td.shard_csr(q_sp, mesh)
     lab_h, lab_q = f"dist_h_panel_{ph.rows_pad}x{INV_STATE}", f"dist_q_block_{pq.rows_pad}x{INV_STATE}"
     k3_map = {labels[0]: (lab_h, lab_q) * DIST_SLOTS, labels[1]: (lab_h, lab_q) * DIST_SLOTS}
-    for label in labels:
-        only_kernels(label, per_call[label], {"csr_to_dense": len(k3_map.get(label, ()))})
+    for label in labels:  # the dense triple: two rings of DIST_SLOTS^2 contractions
+        rings = 2 if label in k3_map else 0
+        only_kernels(label, per_call[label], {"csr_to_dense": len(k3_map.get(label, ())),
+                                              "matmul_full": rings * DIST_SLOTS**2,
+                                              "split_bf16": 2 * rings * DIST_SLOTS**2})
     c64, _ = triple_oracle(h_sp, q_sp, DEVICE)
     errs = {}
     for cfm, label in enumerate(labels[:2]):
@@ -2533,6 +2703,7 @@ def main() -> int:
     sass = sass_counts(path)
     if sass is not None:
         for kernel, instances, ops in (("triu_gemm_kernel", 2, ("HGMMA", "UTMALDG")),
+                                       ("full_gemm_kernel", 1, ("HGMMA", "UTMALDG")),
                                        ("bsr_dense_kernel", 1, ("HGMMA", "UTMALDG")),
                                        ("bsr_bsr_kernel", 1, ("HGMMA", "UTMALDG")),
                                        ("csr_to_dense_kernel", 2, ("UBLKCP",)),
@@ -2622,6 +2793,12 @@ def main() -> int:
         **{key: highest[key] for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
         forms=k1_forms, parts=k1_parts)
 
+    full_shapes = full_main_shapes(ad, bd, sa_sp, sb_sp, dc_a_sp, dc_b_sp)
+    main_full = full_shapes[f"nonsym_a_b_{SIB_N}"]
+    report["matmul_full"] = dict(
+        shapes=full_shapes, **{key: main_full[key] for key in (
+            "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")})
+
     # K2 at the headline's triangle (its main-path shape); K4 on the full 10k
     # product as an extra check.
     ext_10k_triu = compare_extract(c_kernel, triu=True)
@@ -2682,6 +2859,7 @@ def main() -> int:
         + [f"K1 {branch} A B parts, one window: split A {r['split_a_ms']:.3f} + split B^T "
            f"{r['split_bt_ms']:.3f} + GEMM {r['gemm_ms']:.3f} ms ({r['gemm_bound_ms'] / r['gemm_ms']:.1%}"
            f" of its bound) against K1 whole {r['whole_ms']:.3f} ms" for branch, r in k1_parts.items()]
+        + [full_line(label, r) for label, r in full_shapes.items()]
         + [ext(f"K2 {N}^2 triu", ext_10k_triu), ext(f"K4 {N}^2 full", ext_10k_full),
            ext(f"K2 {SIB_N}^2 triu", ext_sib_triu),
            ext(f"K4 {SIB_N}^2 ({ext_sib_full['nnz'] / SIB_N**2:.3f} dense)", ext_sib_full),
@@ -2720,6 +2898,11 @@ def main() -> int:
                 f"the headline request launched no {KERNELS[key][0]}")
     require(per_request["nonsymmetric_12288"]["dense_to_csr"] > 0,
             "the non-symmetric request launched no K4")
+    for label, full in (("headline_symmetric_10k", 0), ("nonsymmetric_12288", 1),
+                        ("dense_output_10k", 1)):
+        require(per_request[label]["matmul_full"] == full and per_request[label]["split_bf16"] == 2,
+                f"{label}: launches {per_request[label]}, not matmul_full x{full} and "
+                "split_bf16 x2")
 
     c_sp = results.pop("headline_symmetric_10k")
     require(c_sp.nnz == N * (N + 1) // 2, f"nnz {c_sp.nnz} != {N * (N + 1) // 2}")

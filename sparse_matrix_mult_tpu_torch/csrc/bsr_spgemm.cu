@@ -239,6 +239,7 @@ bsr_bsr_kernel(const __grid_constant__ CUtensorMap map_a,
     store_tile(acc, c, m, n, (b / nbc) * kBlock, (b % nbc) * kBlock);
     g += sched.steps();
   }
+  end_turns(g);
 }
 
 }  // namespace

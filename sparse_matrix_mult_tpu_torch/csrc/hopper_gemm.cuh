@@ -18,16 +18,32 @@
 //     relative at the triple product's and the inversion's shapes, measured
 //     on an H100).  So the wgmma accumulator holds one K-step only and is
 //     added to an fp32 register accumulator (round to nearest) after each.
+//   * For P = 3 (a full f32 product) that add is compensated (Kahan):
+//     plain, its rounding grows with the number of K-steps and reached
+//     1.2e-6 of |A| |B| at K = 16,384 (the distributed triple's second
+//     ring, measured on an H100), above the 1e-6 the six passes are held
+//     to.  What the add rounded off starts the wgmma accumulator of the
+//     next K-step; between K-steps it waits in 32 registers as bf16 pairs
+//     (their rounding leaves 2^-9 of it).  Kept as 64 floats it took the
+//     consumers past the 168 registers a thread of this CTA can have and
+//     spilled (setmaxnreg does not raise what ptxas allocates); kept in
+//     shared memory it was slower still.  P = 2 (split3, whose dropped
+//     term is ~2^-16) adds plainly.
+//   * The two consumer warpgroups take turns issuing their wgmmas (named
+//     barriers), so that one's adds overlap the other's products.
 //
 // What differs between the kernels is the schedule, a struct with
 //   int  steps() const           -- the tile's number of 64-deep K-steps;
 //   int2 a_at(int ks, int p)     -- (K column, row) of A's box of piece p at step ks;
 //   int2 b_at(int ks, int p)     -- the same for B.
 // A kernel with one tile per CTA picks it, builds its schedule, calls
-// gemm_tile and stores the tile with store_tile.  A persistent kernel sets
+// gemm_tile and stores the tile with store_tile; K1 and matmul_full share
+// TileSchedule (their tile over all of K) and launch_tile_gemm, and differ
+// only in which tiles their blocks map to.  A persistent kernel sets
 // the ring up once (ring_setup) and runs produce / consume on each of its
 // tiles in turn, counting the ring's steps across tiles, so the producer
-// loads a tile's first K-steps while the consumers store the tile before.
+// loads a tile's first K-steps while the consumers store the tile before;
+// its consumers call end_turns after their last tile.
 
 #pragma once
 
@@ -37,6 +53,7 @@
 #include <stdint.h>
 
 #include "mbarrier.cuh"
+#include "smem_limit.cuh"
 
 namespace {
 
@@ -45,6 +62,7 @@ constexpr int kStep = 64;                       // K depth of a stage: 128 bytes
 constexpr int kTileBytes = kTile * kStep * 2;   // one piece of one operand in a stage
 constexpr int kConsumerWarps = 8;               // two warpgroups
 constexpr int kGemmThreads = (kConsumerWarps + 1) * 32;  // + one producer warp
+constexpr int kGroup = 8;  // tile rows walked together, so CTAs in flight share panels in L2
 
 template <int P>
 struct Ring {
@@ -122,6 +140,17 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, ui
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// The bf16 halves of w: the low one is the first (an exact widening).
+__device__ __forceinline__ void unpack_bf16x2(uint32_t w, float* out) {
+  out[0] = __uint_as_float(w << 16);
+  out[1] = __uint_as_float(w & 0xFFFF0000u);
+}
+
 // ------------------------------------------------------------------ core ----
 
 // The ring of stages in dynamic shared memory (1024-aligned) and its full /
@@ -173,6 +202,24 @@ __device__ __forceinline__ void produce(const RingSmem<P>& r, const CUtensorMap&
   }
 }
 
+// The two consumer warpgroups take turns on the tensor cores (named
+// barriers 1 and 2): warpgroup wg waits for its turn before it issues a
+// K-step's wgmmas and hands the turn over once they are issued.  The tensor
+// cores take them in that order, so one warpgroup's adds into acc overlap
+// the other's products instead of both adding while the tensor cores idle.
+__device__ __forceinline__ void wait_turn(int wg) {
+  asm volatile("bar.sync %0, 256;" ::"r"(1 + wg) : "memory");
+}
+__device__ __forceinline__ void pass_turn(int wg) {
+  asm volatile("bar.arrive %0, 256;" ::"r"(2 - wg) : "memory");
+}
+
+// After a consumer's last K-step: warpgroup 0 takes the turn the last
+// K-step of warpgroup 1 handed over, so that every barrier completes.
+__device__ __forceinline__ void end_turns(int steps) {
+  if (threadIdx.x / 128 == 0 && steps > 0) wait_turn(0);
+}
+
 // The consumers (256 threads): the schedule's K-steps from ring step g0 on,
 // summed into acc (their part of the tile, see store_tile).
 template <int P, class Schedule>
@@ -183,16 +230,25 @@ __device__ __forceinline__ void consume(const RingSmem<P>& r, const Schedule& sc
   const int nk = sched.steps();
   // Warpgroup wg owns rows 64 wg .. 64 wg + 63 of the tile.
   const int wg = warp / 4;
+  constexpr bool compensated = P == 3;
   float part[64];
+  uint32_t rest[32];  // compensated: what the adds into acc rounded off, bf16 pairs
 #pragma unroll
-  for (int i = 0; i < 64; ++i) acc[i] = part[i] = 0.f;
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+#pragma unroll
+  for (int j = 0; j < 32; ++j) rest[j] = 0;
 
   for (int ks = 0; ks < nk; ++ks) {
     const int g = g0 + ks, s = g % R::stages;
     mbar_wait(r.full + 8 * s, (g / R::stages) & 1);
     const uint32_t a_tiles = r.base + s * R::stage_bytes + wg * (kTile / 2) * kStep * 2;
     const uint32_t b_tiles = r.base + s * R::stage_bytes + P * kTileBytes;
+    if (compensated) {
+#pragma unroll
+      for (int j = 0; j < 32; ++j) unpack_bf16x2(rest[j], part + 2 * j);
+    }
     fence_regs(part);
+    if (g > 0 || wg == 1) wait_turn(wg);
     wgmma_fence();
 #pragma unroll
     for (int t = 0; t < passes(P); ++t) {
@@ -200,16 +256,40 @@ __device__ __forceinline__ void consume(const RingSmem<P>& r, const Schedule& sc
       const uint64_t db = smem_desc(b_tiles + pass_b(P, t) * kTileBytes);
 #pragma unroll
       for (int kk = 0; kk < kStep / 16; ++kk) {  // 32 bytes further along K each
-        wgmma_m64n128k16(part, da + 2 * kk, db + 2 * kk, (t > 0 || kk > 0) ? 1 : 0);
+        wgmma_m64n128k16(part, da + 2 * kk, db + 2 * kk, (compensated || t > 0 || kk > 0) ? 1 : 0);
       }
     }
     wgmma_commit();
+    pass_turn(wg);
     wgmma_wait_all();
     fence_regs(part);
     __syncwarp();
     if (lane == 0) mbar_arrive(r.empty + 8 * s);
+    if (compensated) {  // Kahan: acc takes part, what it rounded off starts the next step
 #pragma unroll
-    for (int i = 0; i < 64; ++i) acc[i] += part[i];
+      for (int j = 0; j < 32; ++j) {
+        float left[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int i = 2 * j + e;
+          const float sum = acc[i] + part[i];
+          left[e] = part[i] - (sum - acc[i]);
+          acc[i] = sum;
+        }
+        rest[j] = pack_bf16x2(left[0], left[1]);
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < 64; ++i) acc[i] += part[i];
+    }
+  }
+  if (compensated) {
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      unpack_bf16x2(rest[j], part + 2 * j);
+      acc[2 * j] += part[2 * j];
+      acc[2 * j + 1] += part[2 * j + 1];
+    }
   }
 }
 
@@ -234,8 +314,17 @@ __device__ __forceinline__ bool gemm_tile(const CUtensorMap& map_a, const CUtens
     return false;
   }
   consume(r, sched, 0, acc);
+  end_turns(sched.steps());
   return true;
 }
+
+// The tile (ti, tj) over all of K, contiguous.
+struct TileSchedule {
+  int ti, tj, m_pad, n_pad, nk;
+  __device__ int steps() const { return nk; }
+  __device__ int2 a_at(int ks, int p) const { return make_int2(ks * kStep, p * m_pad + ti * kTile); }
+  __device__ int2 b_at(int ks, int p) const { return make_int2(ks * kStep, p * n_pad + tj * kTile); }
+};
 
 // Stores a consumer thread's part of the tile whose top-left entry is
 // (row0, col0) into c (m x n, row-major), inside the matrix only: register
@@ -301,6 +390,27 @@ bool tensor_map(CUtensorMap* map, const void* ptr, int64_t rows, int64_t k_pad) 
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims, strides, box,
             elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Launches `kernel`, a one-tile-per-CTA GEMM whose first two parameters are
+// the tensor maps of A's and B's P pieces ((P * m_pad, k_pad) and
+// (P * n_pad, k_pad) bf16, as TileSchedule reads them), on `blocks` CTAs
+// with `args` after the maps.  Returns a cudaError_t.
+template <int P, class Kernel, class... Args>
+int launch_tile_gemm(Kernel* kernel, int64_t blocks, const void* ap, const void* bp,
+                     int64_t m_pad, int64_t n_pad, int64_t k_pad, cudaStream_t stream,
+                     Args... args) {
+  if (blocks == 0) return 0;
+  const int64_t rows_pad = m_pad > n_pad ? m_pad : n_pad;  // TMA rows are int32
+  if (blocks > 0x7FFFFFFF || P * rows_pad > 0x7FFFFFFF) return (int)cudaErrorInvalidValue;
+  CUtensorMap map_a, map_b;
+  if (!tensor_map(&map_a, ap, P * m_pad, k_pad) || !tensor_map(&map_b, bp, P * n_pad, k_pad)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const cudaError_t err = raise_smem_limit_once(kernel, Ring<P>::smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<(unsigned)blocks, kGemmThreads, Ring<P>::smem, stream>>>(map_a, map_b, args...);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace

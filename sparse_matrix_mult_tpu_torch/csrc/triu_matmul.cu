@@ -32,18 +32,17 @@
 //     strictly-lower tiles are neither loaded nor multiplied and are left
 //     unwritten; the caller applies triu.
 //   * Each CTA runs the shared tensor-core core of hopper_gemm.cuh on its
-//     pair, with a contiguous K: a producer warp's TMA loads into an
+//     pair, with a contiguous K: a producer thread's TMA loads into an
 //     mbarrier ring, two consumer warpgroups of wgmma m64n128k16, the wgmma
-//     accumulator added into fp32 registers after every 64-deep K-step.
+//     accumulator added into fp32 registers (Kahan-compensated) after
+//     every 64-deep K-step.
 //   * The epilogue stores the fp32 tile straight from the registers, a
 //     32-byte sector per row and instruction.
 
 #include "hopper_gemm.cuh"
-#include "smem_limit.cuh"
 
 namespace {
 
-constexpr int kGroup = 8;  // tile rows walked together
 constexpr int kSplitThreads = 256;
 
 // ---------------------------------------------------------------- split ----
@@ -143,14 +142,6 @@ __device__ __forceinline__ void pair_of(int p, int diag, int ntj, int& ti, int& 
   }
 }
 
-// K1's schedule: the pair (ti, tj) over all of K, contiguous.
-struct TriuSchedule {
-  int ti, tj, m_pad, n_pad, nk;
-  __device__ int steps() const { return nk; }
-  __device__ int2 a_at(int ks, int p) const { return make_int2(ks * kStep, p * m_pad + ti * kTile); }
-  __device__ int2 b_at(int ks, int p) const { return make_int2(ks * kStep, p * n_pad + tj * kTile); }
-};
-
 // c (m x n, row-major) on the upper tile pairs = sum over the passes of
 // A_pieces[pa] . B_pieces[pb]^T; the pieces are (P * rows_pad, k_pad) bf16
 // arrays behind the tensor maps.
@@ -162,7 +153,7 @@ triu_gemm_kernel(const __grid_constant__ CUtensorMap map_a,
   int ti, tj;
   pair_of(blockIdx.x, diag, ntj, ti, tj);
   float acc[64];
-  if (gemm_tile<P>(map_a, map_b, TriuSchedule{ti, tj, m_pad, n_pad, nk}, acc)) {
+  if (gemm_tile<P>(map_a, map_b, TileSchedule{ti, tj, m_pad, n_pad, nk}, acc)) {
     store_tile(acc, c, m, n, ti * kTile, tj * kTile);
   }
 }
@@ -197,17 +188,9 @@ int gemm(const void* ap, const void* bp, void* c, int64_t m, int64_t n, int64_t 
     const int64_t rows = diag - g0 < kGroup ? diag - g0 : kGroup;
     pairs += rows * (rows + 1) / 2 + (ntj - g0 - rows) * rows;
   }
-  if (pairs == 0) return 0;
-  CUtensorMap map_a, map_b;
-  if (!tensor_map(&map_a, ap, P * m_pad, k_pad) || !tensor_map(&map_b, bp, P * n_pad, k_pad)) {
-    return (int)cudaErrorInvalidValue;
-  }
-  const cudaError_t err = raise_smem_limit_once(triu_gemm_kernel<P>, Ring<P>::smem);
-  if (err != cudaSuccess) return (int)err;
-  triu_gemm_kernel<P><<<(unsigned)pairs, kGemmThreads, Ring<P>::smem, stream>>>(
-      map_a, map_b, (float*)c, (int)m, (int)n, (int)m_pad, (int)n_pad, (int)(k_pad / kStep),
-      (int)diag, (int)ntj);
-  return (int)cudaGetLastError();
+  return launch_tile_gemm<P>(triu_gemm_kernel<P>, pairs, ap, bp, m_pad, n_pad, k_pad, stream,
+                             (float*)c, (int)m, (int)n, (int)m_pad, (int)n_pad,
+                             (int)(k_pad / kStep), (int)diag, (int)ntj);
 }
 
 }  // namespace

@@ -11,10 +11,16 @@ mean ``x0`` and a diagonal observation-noise covariance ``r_diag`` (n_obs):
   marginal variances without forming the posterior covariance.
 
 Dense operands are float32 on the card and keep their dtype on the CPU, as
-the JAX package computes in float32 on the TPU.  Every dense product runs in
-full FP32 (:func:`~sparse_matrix_mult_tpu_torch.ops.matmul.full_fp32`); S is
-factored by Cholesky.  Plain eager functions: ``y``, ``x0`` and ``r_diag``
-are tensors on the operands' device.
+the JAX package computes in float32 on the TPU.  The products the JAX
+package writes as ``jnp.dot(..., precision="highest")`` (``Q H^T`` and, in
+:func:`posterior_covariance`, ``(Q H^T) K^T``) go through
+:func:`~sparse_matrix_mult_tpu_torch.ops.matmul.policy_matmul` (FAST): on
+the card the six-pass bf16 GEMM ``matmul_full`` on the tensor cores, on the
+CPU ``torch.matmul`` in the operands' dtype; the matrix-vector products
+run in full FP32
+(:func:`~sparse_matrix_mult_tpu_torch.ops.matmul.full_fp32`); S is factored
+by Cholesky.  Plain eager functions: ``y``, ``x0`` and ``r_diag`` are
+tensors on the operands' device.
 """
 
 from __future__ import annotations
@@ -24,7 +30,7 @@ from typing import NamedTuple
 import torch
 
 from ..ops.convert import csr_to_dense
-from ..ops.matmul import full_fp32
+from ..ops.matmul import full_fp32, policy_matmul
 from ..ops.triple_product import triple_product_dense
 from ..types import CSRMatrix
 
@@ -59,8 +65,8 @@ def invert(h: CSRMatrix, q: CSRMatrix, y: torch.Tensor, x0: torch.Tensor,
     hd, qd = _dense_ops(h, q)
     dt = hd.dtype
     s = _innovation_covariance(h, q, r_diag, dt)
+    qht = policy_matmul(qd, hd.T)  # (n_state, n_obs)
     with full_fp32():
-        qht = torch.matmul(qd, hd.T)  # (n_state, n_obs)
         innov = y.to(dt) - torch.matmul(hd, x0.to(dt))
         chol = torch.linalg.cholesky(s)
         x_post = x0.to(dt) + torch.matmul(qht, torch.cholesky_solve(innov[:, None], chol)[:, 0])
@@ -78,7 +84,7 @@ def posterior_covariance(h: CSRMatrix, q: CSRMatrix, r_diag: torch.Tensor) -> to
     """
     hd, qd = _dense_ops(h, q)
     s = _innovation_covariance(h, q, r_diag, hd.dtype)
+    qht = policy_matmul(qd, hd.T)
     with full_fp32():
-        qht = torch.matmul(qd, hd.T)
         kt = torch.cholesky_solve(qht.T, torch.linalg.cholesky(s))
-        return qd - torch.matmul(qht, kt)
+    return qd - policy_matmul(qht, kt)

@@ -37,7 +37,7 @@ NVCC_FLAGS = [
 
 # Kernel launches per wrapper; each CUDA wrapper adds one where it launches.
 LAUNCHES = {
-    "matmul_triu": 0, "split_bf16": 0, "csr_to_dense": 0, "dense_to_csr": 0,
+    "matmul_triu": 0, "matmul_full": 0, "split_bf16": 0, "csr_to_dense": 0, "dense_to_csr": 0,
     "dense_to_csr_triu": 0, "bsr_matmul_dense": 0, "bsr_pair_runs": 0, "bsr_bsr_matmul_dense": 0,
     "dense_to_csr_fused": 0, "csr_to_dense_fused": 0,
 }
@@ -51,6 +51,7 @@ _INT = ctypes.c_int
 _SIGNATURES = {
     "smm_split_bf16": [_P, _P, _I64, _I64, _I64, _I64, _INT, _INT, _P],
     "smm_matmul_triu_bf16": [_P, _P, _P, _I64, _I64, _I64, _I64, _I64, _INT, _P],
+    "smm_matmul_full_bf16": [_P, _P, _P, _I64, _I64, _I64, _I64, _I64, _INT, _P],
     "smm_csr_to_dense_f32": [_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _P],
     "smm_csr_to_dense_f64": [_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _P],
     "smm_dense_count_f32": [_P, _I64, _I64, _INT, _I64, _P, _P],

@@ -31,7 +31,7 @@ import torch
 
 from ...types import bucket_capacity
 from ...types_bsr import BSRMatrix, _tobsr_padded, bsr_to_dense
-from ..matmul import full_fp32
+from .._precision import full_fp32
 from . import _build
 from .triu_matmul import KSTEP, TILE, split_bf16
 

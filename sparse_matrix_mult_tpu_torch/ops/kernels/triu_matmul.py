@@ -24,7 +24,7 @@ from __future__ import annotations
 
 import torch
 
-from ..matmul import full_fp32
+from .._precision import full_fp32
 from . import _build
 
 __all__ = ["matmul_triu", "matmul_transpose_triu", "matmul_triu_pieces",

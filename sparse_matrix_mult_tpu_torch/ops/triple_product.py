@@ -5,14 +5,18 @@ branch.  The intermediate ``T = H.Q`` is never a sparse matrix, and with
 ``compute_full_matrix=1`` the lower triangle mirrors the upper one, so the
 output is symmetric even when ``Q`` is not (the reference's contract).
 
-On the card under FAST, K3 densifies H and Q in float32, ``H.Q`` is one
-full-FP32 cuBLAS product (the JAX package leaves it to XLA), and the second
+On the card every f32 product that the JAX package writes as
+``jnp.dot(..., precision="highest")`` runs the six-pass bf16 GEMM
+:func:`~.kernels.full_matmul.matmul_full` on the tensor cores.  Under FAST,
+K3 densifies H and Q in float32, ``H.Q`` is one full product and the second
 contraction goes through K1 in its ``transpose_b`` form: only the upper
-tiles of ``T . H^T`` are computed, and K1's split reads the (m, n)
-row-major ``hd`` as its K-major (N, K) operand directly.  K1 runs its
-full-f32 (HIGHEST) branch, or its three-pass split3 branch when the caller
-passed ``precision="fast"`` explicitly, as in the JAX package (no term-count
-gate here, as there).
+tiles of ``T . H^T`` are computed (:func:`_fast_dense`).  K1 runs its
+full-f32 (HIGHEST) branch, and then H is split once: its three bf16 pieces
+are A of ``H.Q`` and B of ``T . H^T``; or K1 runs its three-pass split3
+branch when the caller passed ``precision="fast"`` explicitly, as in the
+JAX package (no term-count gate here, as there).  STRICT, and every
+product on the CPU, multiplies in the operands' dtype with
+``torch.matmul``.
 """
 
 from __future__ import annotations
@@ -21,17 +25,33 @@ import torch
 
 from ..config import Precision
 from ..types import CSRMatrix
+from ._precision import full_fp32
 from .convert import csr_to_dense
 from .dense_path import _expected_terms, _triu_kernel_ok
-from .kernels.triu_matmul import matmul_triu
-from .matmul import full_fp32, resolve_precision, split_operand
+from .kernels.full_matmul import matmul_full, matmul_full_pieces
+from .kernels.triu_matmul import matmul_triu, matmul_triu_pieces, split_bf16
+from .matmul import resolve_precision, split_operand
 
 __all__ = ["triple_product_dense"]
 
 
 def _chain(hd: torch.Tensor, qd: torch.Tensor) -> torch.Tensor:
-    with full_fp32():
-        return torch.matmul(torch.matmul(hd, qd), hd.T)
+    """H.Q.H^T of f32 operands as the JAX package's two HIGHEST dots."""
+    return matmul_full(matmul_full(hd, qd), hd, transpose_b=True)
+
+
+def _fast_dense(hd: torch.Tensor, qd: torch.Tensor, split3: bool) -> torch.Tensor:
+    """The K1 branch on dense f32 H (m, n) and Q (n, n), on any device (the
+    CPU runs the plain kernels): ``T = H.Q`` in full, then the upper tiles of
+    ``T . H^T``.  Under HIGHEST H is split once, its three pieces in rows
+    form feeding both GEMMs; split3 needs H's two halves for K1, so there
+    nothing is shared."""
+    if split3:
+        return matmul_triu(matmul_full(hd, qd), hd, transpose_b=True, split3=True)
+    m, n = hd.shape
+    hp = split_bf16(hd, 3)
+    t = matmul_full_pieces(hp, split_bf16(qd, 3, transpose=True), m, n)
+    return matmul_triu_pieces(split_bf16(t, 3), hp, m, m)
 
 
 def triple_product_dense(h: CSRMatrix, q: CSRMatrix, compute_full_matrix: int = 0,
@@ -48,24 +68,23 @@ def triple_product_dense(h: CSRMatrix, q: CSRMatrix, compute_full_matrix: int = 
     if _triu_kernel_ok(h, m, m, prec):
         hd = csr_to_dense(h, torch.float32)
         qd = csr_to_dense(q, torch.float32)
-        with full_fp32():
-            t = torch.matmul(hd, qd)
-        split3 = precision == Precision.FAST
-        c = matmul_triu(t, hd, transpose_b=True, split3=split3).to(out_dtype)
+        c = _fast_dense(hd, qd, split3=precision == Precision.FAST).to(out_dtype)
     elif prec == Precision.STRICT or h.device.type != "cuda":
-        c = _chain(csr_to_dense(h, out_dtype), csr_to_dense(q, out_dtype))
+        hd = csr_to_dense(h, out_dtype)
+        with full_fp32():
+            c = torch.matmul(torch.matmul(hd, csr_to_dense(q, out_dtype)), hd.T)
     elif prec == Precision.FAST:
         c = _chain(csr_to_dense(h, torch.float32), csr_to_dense(q, torch.float32)).to(out_dtype)
     elif prec == Precision.SPLIT:
         # Split both contractions; the lo*lo terms are below f64 noise here.
         hhi, hlo = split_operand(csr_to_dense(h, out_dtype))
         qhi, qlo = split_operand(csr_to_dense(q, out_dtype))
-        with full_fp32():
-            t = (torch.matmul(hhi, qhi).double() + torch.matmul(hhi, qlo).double()
-                 + torch.matmul(hlo, qhi).double())
-            thi, tlo = split_operand(t)
-            c = (torch.matmul(thi, hhi.T).double() + torch.matmul(thi, hlo.T).double()
-                 + torch.matmul(tlo, hhi.T).double()).to(out_dtype)
+        t = (matmul_full(hhi, qhi).double() + matmul_full(hhi, qlo).double()
+             + matmul_full(hlo, qhi).double())
+        thi, tlo = split_operand(t)
+        c = (matmul_full(thi, hhi, transpose_b=True).double()
+             + matmul_full(thi, hlo, transpose_b=True).double()
+             + matmul_full(tlo, hhi, transpose_b=True).double()).to(out_dtype)
     else:
         raise ValueError(f"unknown precision policy: {prec!r}")
 

@@ -16,8 +16,9 @@ functions, arguments, defaults and ``ValueError``s:
   ``_local_dense`` densifies through K3 and the CSR ring extracts through
   K4 (:mod:`..ops.convert`), so on the card those hand kernels run at the
   per-slot panel shapes.  The panel products go to
-  :func:`..ops.matmul.policy_matmul` in full FP32 (f64 on the CPU), as JAX
-  calls ``jnp.dot(precision="highest")`` outside any Pallas kernel.
+  :func:`..ops.matmul.policy_matmul`, which runs JAX's
+  ``jnp.dot(precision="highest")`` on the card as the six-pass bf16 GEMM
+  ``matmul_full`` on the tensor cores (f64 ``torch.matmul`` on the CPU).
 
 Where the JAX module runs ``shard_map`` bodies in parallel, the port loops
 over the slots this process owns.  Each function is called by every process
@@ -34,8 +35,8 @@ keys; no cummax forward fill, no bit packing) and compresses with
 sort and segmented sum and writes each key of the dense C panel once: no
 atomics, so two identical calls give the same bits.
 
-Values are float32 on CUDA slots (the contraction runs full FP32; float64
-under ``Precision.STRICT`` or ``SPLIT``) and float64 on the CPU, where the
+Values are float32 on CUDA slots (the contraction runs ``matmul_full``;
+float64 under ``Precision.STRICT`` or ``SPLIT``) and float64 on the CPU, where the
 tests hold the port against JAX to 1e-12.
 """
 

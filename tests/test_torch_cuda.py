@@ -20,8 +20,10 @@ from sparse_matrix_mult_tpu_torch.ops.convert import csr_to_dense
 from sparse_matrix_mult_tpu_torch.ops.kernels import LAUNCHES
 from sparse_matrix_mult_tpu_torch.ops.kernels import bsr_spgemm as kb
 from sparse_matrix_mult_tpu_torch.ops.kernels import convert_kernels as ck
+from sparse_matrix_mult_tpu_torch.ops.kernels import full_matmul as fm
 from sparse_matrix_mult_tpu_torch.ops.kernels import triu_matmul as tm
-from sparse_matrix_mult_tpu_torch.ops.matmul import full_fp32
+from sparse_matrix_mult_tpu_torch.ops.matmul import full_fp32, policy_matmul
+from sparse_matrix_mult_tpu_torch.ops.triple_product import triple_product_dense
 
 pytestmark = pytest.mark.cuda
 
@@ -237,6 +239,106 @@ def test_matmul_triu_pieces_is_k1s_gemm(cuda, split3):
     assert LAUNCHES["matmul_triu"] == before + 1
     tiles = torch.arange(300, device=cuda)[:, None] // 128 <= torch.arange(400, device=cuda) // 128
     assert torch.equal(got[tiles], tm.matmul_triu(a, b, split3=split3)[tiles])
+
+
+# (m, k, n): one entry; off the tile and K-step edges; crossing both; a ring
+# slot's panel; a larger product of many tiles.
+FULL_SHAPES = [(1, 1, 1), (130, 200, 70), (257, 65, 129), (48, 25, 300), (700, 1000, 1100)]
+
+
+def _launched(before: dict) -> dict:
+    return {k: LAUNCHES[k] - before[k] for k in LAUNCHES if LAUNCHES[k] != before[k]}
+
+
+@pytest.mark.parametrize("transpose_b", [False, True])
+@pytest.mark.parametrize("m,k,n", FULL_SHAPES)
+def test_matmul_full_kernel(cuda, m, k, n, transpose_b):
+    """The full GEMM against its plain version (the six passes of the same
+    pieces) within 1e-6 of (|A| |B|) and against FP32 torch.matmul within
+    1e-5; both forms give the same bits, its upper tiles are K1's; two
+    splits and one GEMM launched."""
+    rng = np.random.default_rng(m + 3 * k + 7 * n)
+    a = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32)).to(cuda)
+    b = torch.from_numpy(rng.standard_normal((k, n)).astype(np.float32)).to(cuda)
+    bt = b.T.contiguous()
+    before = dict(LAUNCHES)
+    got = fm.matmul_full(a, bt if transpose_b else b, transpose_b=transpose_b)
+    torch.cuda.synchronize()
+    assert _launched(before) == {"matmul_full": 1, "split_bf16": 2}
+    with full_fp32():
+        unit = torch.matmul(a.abs(), b.abs())
+        ref = torch.matmul(a, b)
+    assert bool(((got - fm.matmul_full_plain(a, b)).abs() <= 1e-6 * unit).all())
+    assert bool(((got - ref).abs() <= 1e-5 * unit).all())
+    assert torch.equal(got, fm.matmul_full(a, b if transpose_b else bt, transpose_b=not transpose_b))
+    tiles = torch.arange(m, device=cuda)[:, None] // 128 <= torch.arange(n, device=cuda) // 128
+    assert torch.equal(got[tiles], tm.matmul_triu(a, b)[tiles])
+
+
+def test_matmul_full_long_k_within_its_six_passes(cuda):
+    """At K = 16,384 of positive terms (256 K-steps, where plain fp32 adds
+    of each step into the accumulator drift to ~1e-6) the compensated
+    kernel stays within 1e-6 of (|A| |B|) of the six passes of its pieces
+    summed in f64, and K1 HIGHEST gives the same bits on its tiles."""
+    rng = np.random.default_rng(16_384)
+    a = torch.from_numpy(rng.random((256, 16_384), dtype=np.float32)).to(cuda)
+    b = torch.from_numpy(rng.random((16_384, 256), dtype=np.float32)).to(cuda)
+    ap, bp = tm.split_bf16(a, 3), tm.split_bf16(b, 3, transpose=True)
+    got = fm.matmul_full_pieces(ap, bp, 256, 256)
+    exact = torch.zeros((256, 256), dtype=torch.float64, device=cuda)
+    for pa, pb in ((2, 0), (1, 1), (0, 2), (1, 0), (0, 1), (0, 0)):
+        exact += ap[pa, :256].double() @ bp[pb, :256].double().T
+    unit = a.double() @ b.double()
+    assert float(((got.double() - exact).abs() / unit).max()) <= 1e-6
+    tiles = torch.arange(256, device=cuda)[:, None] // 128 <= torch.arange(256, device=cuda) // 128
+    assert torch.equal(got[tiles], tm.matmul_triu_pieces(ap, bp, 256, 256)[tiles])
+
+
+def test_matmul_full_on_empty_operands(cuda):
+    """m, n or K of 0: zeros, nothing launched."""
+    for m, k, n in ((0, 5, 3), (4, 0, 3), (4, 5, 0)):
+        before = dict(LAUNCHES)
+        got = fm.matmul_full(torch.ones((m, k), device=cuda), torch.ones((k, n), device=cuda))
+        assert _launched(before) == {}
+        assert got.shape == (m, n) and not got.any()
+    with pytest.raises(TypeError):
+        fm.matmul_full(torch.ones((4, 5), device=cuda, dtype=torch.float64),
+                       torch.ones((5, 3), device=cuda, dtype=torch.float64))
+
+
+def test_policy_matmul_fast_is_one_full_gemm(cuda):
+    """policy_matmul FAST on the card: two splits and one full GEMM, the
+    bits of matmul_full; a transposed view of B takes the transpose_b form
+    (the same bits, the same launches)."""
+    rng = np.random.default_rng(41)
+    a = torch.from_numpy(rng.standard_normal((300, 200)).astype(np.float32)).to(cuda)
+    b = torch.from_numpy(rng.standard_normal((200, 257)).astype(np.float32)).to(cuda)
+    want = fm.matmul_full(a, b)
+    for given in (b, b.T.contiguous().T):
+        before = dict(LAUNCHES)
+        got = policy_matmul(a, given, "fast")
+        torch.cuda.synchronize()
+        assert _launched(before) == {"matmul_full": 1, "split_bf16": 2}
+        assert torch.equal(got, want)
+
+
+def test_highest_triple_shares_h_pieces(cuda):
+    """The HIGHEST triple on the card: K3 twice, three splits (H once, Q,
+    T), one full GEMM for H.Q and K1 for T.H^T; within 1e-5 of
+    (|H| |Q| |H|^T) of the f64 product."""
+    h_sp = sp.random(1100, 1000, density=0.1, format="csr", random_state=42)
+    q_sp = sp.random(1000, 1000, density=0.1, format="csr", random_state=43)
+    h_sp.data = 2.0 * h_sp.data - 1.0
+    h = tsmm.from_scipy(h_sp, dtype=torch.float32, device=cuda)
+    q = tsmm.from_scipy(q_sp, dtype=torch.float32, device=cuda)
+    before = dict(LAUNCHES)
+    got = triple_product_dense(h, q, 0)
+    torch.cuda.synchronize()
+    assert _launched(before) == {"csr_to_dense": 2, "split_bf16": 3, "matmul_full": 1,
+                                 "matmul_triu": 1}
+    want = np.triu((h_sp @ q_sp @ h_sp.T).toarray())
+    bound = 1e-5 * np.triu((abs(h_sp) @ abs(q_sp) @ abs(h_sp).T).toarray())
+    assert np.all(np.abs(got.cpu().numpy() - want) <= bound)
 
 
 @pytest.mark.parametrize("pieces", [2, 3])
@@ -877,7 +979,7 @@ def test_cuda_tensors_never_reach_a_plain_version(cuda, monkeypatch):
     """With every plain version replaced by one that raises, the kernels'
     entry points and the triple product still run on CUDA tensors, and each
     launch is counted."""
-    for module in (ck, tm, kb):
+    for module in (ck, tm, kb, fm):
         for name in dir(module):
             if name.endswith("_plain"):
                 monkeypatch.setattr(module, name, _raise_plain(name))
@@ -899,7 +1001,8 @@ def test_cuda_tensors_never_reach_a_plain_version(cuda, monkeypatch):
     torch.cuda.synchronize()
     assert torch.equal(back, dense)
     for key, n in (("dense_to_csr_fused", 1), ("csr_to_dense_fused", 1), ("dense_to_csr", 1),
-                   ("csr_to_dense", 3), ("matmul_triu", 1), ("split_bf16", 4),
+                   ("csr_to_dense", 3), ("matmul_triu", 1), ("matmul_full", 1),
+                   ("split_bf16", 6),
                    ("bsr_pair_runs", 1), ("bsr_bsr_matmul_dense", 1)):
         assert LAUNCHES[key] == before[key] + n, key
 
@@ -1114,7 +1217,7 @@ def test_row_mesh_takes_every_card(cuda):
 
 def test_kernels_on_a_card_that_is_not_current(cuda):
     """Every wrapper makes its tensors' card current for the launch: K3, K8,
-    K4, K2, K7 and K1 on cuda:1 while cuda:0 is current, against their
+    K4, K2, K7, K1 and matmul_full on cuda:1 while cuda:0 is current, against their
     plain versions (the runtime launches on the current card; before the
     wrappers set it, a 4-card mesh read another card's memory)."""
     if torch.cuda.device_count() < 2:
@@ -1137,6 +1240,11 @@ def test_kernels_on_a_card_that_is_not_current(cuda):
     with full_fp32():
         unit = torch.triu(torch.matmul(sq.abs(), sq.abs()))
     assert bool(((got - torch.triu(tm.matmul_triu_plain(sq, sq))).abs() <= 1e-5 * unit).all())
+    full = fm.matmul_full(dense, dense, transpose_b=True)
+    with full_fp32():
+        unit = torch.matmul(dense.abs(), dense.abs().T)
+    assert bool(((full - fm.matmul_full_plain(dense, dense, transpose_b=True)).abs()
+                 <= 1e-6 * unit).all())
     torch.cuda.synchronize(card)
     assert torch.cuda.current_device() == 0
 

@@ -17,6 +17,7 @@ def test_import_leaves_jax_unloaded():
         "import sys, sparse_matrix_mult_tpu_torch\n"
         "import sparse_matrix_mult_tpu_torch.ops.kernels.convert_kernels\n"
         "import sparse_matrix_mult_tpu_torch.ops.kernels.triu_matmul\n"
+        "import sparse_matrix_mult_tpu_torch.ops.kernels.full_matmul\n"
         "import sparse_matrix_mult_tpu_torch.ops.kernels.bsr_spgemm\n"
         "import sparse_matrix_mult_tpu_torch.ops.triple_product\n"
         "import sparse_matrix_mult_tpu_torch.models.inversion\n"

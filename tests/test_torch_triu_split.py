@@ -107,6 +107,14 @@ def _recording_k1(calls):
     return k1
 
 
+def _recording_k1_pieces(calls):
+    """K1's GEMM alone, recording whether its pieces are split3's halves."""
+    def k1(ap, bp, m, n):
+        calls.append(ap.shape[0] == 2)
+        return tm.matmul_triu_pieces(ap, bp, m, n)
+    return k1
+
+
 @pytest.mark.parametrize("m,k", [(200, 300), (260, 140)])
 @pytest.mark.parametrize("precision,dense", [("fast", True), (None, True), ("auto", True),
                                              ("fast", False)])
@@ -138,10 +146,12 @@ def test_split3_routing_in_the_dense_path(precision, dense, m, k, monkeypatch, c
 @pytest.mark.parametrize("precision", ["fast", None])
 def test_split3_routing_in_the_triple_product(precision, m, n, monkeypatch, config):
     """The triple product's K1 takes split3 on an explicit "fast" (no gate,
-    as in the JAX package), never on AUTO."""
+    as in the JAX package), never on AUTO (where K1's GEMM runs on the
+    pieces H shares with ``H.Q``)."""
     calls = []
     monkeypatch.setattr(ttriple, "_triu_kernel_ok", lambda *args: True)
     monkeypatch.setattr(ttriple, "matmul_triu", _recording_k1(calls))
+    monkeypatch.setattr(ttriple, "matmul_triu_pieces", _recording_k1_pieces(calls))
     h_sp = sp.random(m, n, density=0.2, format="csr", random_state=3)
     q_sp = sp.random(n, n, density=0.2, format="csr", random_state=4)
     h, q = tsmm.from_scipy(h_sp, device="cpu"), tsmm.from_scipy(q_sp, device="cpu")
