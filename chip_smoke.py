@@ -146,7 +146,10 @@ Phases, one line each:
                 the peak device memory, the product against spgemm_host's,
                 and two yardsticks the port never calls: cuSPARSE SpGEMM
                 (torch.sparse.mm of the CSR tensors) and the host OpenMP
-                kernel spgemm_host.  Then one JSON line {"esc": ...}.
+                kernel spgemm_host; the cost model's est_host and est_dev
+                at (c) and (d), the time of its count of the entries of
+                A's one-entry rows there, and (d) once on the host route.
+                Then one JSON line {"esc": ...}.
  15-19. dist-* -- the multi-device layer (parallel/, io.py) on a row mesh
                 of DIST_SLOTS = 4 slots, all on the one card (the ring hands
                 blocks between slots; no bytes cross between cards), each
@@ -188,7 +191,10 @@ Phases, one line each:
                 128 MiB host arrays (host_page_rate, which the other rates
                 are net of); spgemm_host at reuse ~1, ~10 and ~100 (JAX's
                 sqrt(reuse) host_rate_base and the CUDA model's
-                host_partial_rate and host_entry_rate) and at two products
+                host_partial_rate and host_entry_rate), at two products of
+                an A with one entry per row (host_copy_entry_rate, net of
+                the partials term; each point's residual under the two
+                work terms and with the copy term) and at two products
                 whose output passes the mmap threshold
                 (host_out_page_rate); the windowed engine
                 on the card and from_scipy's uploads; the other host-work
@@ -204,10 +210,14 @@ Phases, one line each:
                 fetch_np and upload; then [cost-sweep], one line per
                 request (nine and six held out): the model's estimates and pick
                 under this run's fit, the cold run's pick (the same fit)
-                and the committed defaults' pick beside it, the host route,
-                the device route and the model's route, warm, min of 3 (1
-                where the warm call took over 0.5 s), the pick wrong only
-                where the other route is faster by more than 1.15x, each
+                and the committed defaults' pick beside it, the host and
+                device routes interleaved (a warm call each, then 3 rounds
+                of host, device; 1 where a warm call took over 0.5 s; each
+                round's host/device ratio) and the model's route, warm, min
+                of 3 (1 likewise), the pick wrong only where the other
+                route is faster by more than 1.15x (each way's least
+                time), marked unsteady where its rounds fall on both sides
+                of that margin, each
                 result against scipy at the oracle, K1-K4 launched over the
                 sweep; whether both runs made the same picks, the probes'
                 ratio, request (a) as the model decides against the faster
@@ -1541,6 +1551,30 @@ def resident(a_sp, b_sp, engine: str) -> dict:
     return out
 
 
+def model_c_d(ops: dict, kept_d) -> dict:
+    """The cost model's estimates of requests (c) and (d) as phase 13 priced
+    them (the committed rates), the time of the split of their output
+    entries by A's row lengths (api._single_row_entries), and (d) on the
+    host route once, its result the oracle of ``kept_d``, the device
+    route's."""
+    costs = {}
+    for label, key in (("esc_classic_c", "classic"), ("esc_chunks_d", "chunks")):
+        a_sp, b_sp = ops[key]
+        est_host, est_dev = MODEL_ESTIMATES[label]
+        costs[label] = dict(est_host_s=est_host, est_dev_s=est_dev,
+                            pick="host" if est_host < est_dev else "device",
+                            copied=api._single_row_entries(a_sp, b_sp),
+                            split_s=host_s(lambda: api._single_row_entries(a_sp, b_sp)))
+    with config_set(**HOST_ROUTE):
+        t = time.perf_counter()
+        got = smt.sparse_matrix_multiply(*ops["chunks"])
+        costs["esc_chunks_d"]["host_route_s"] = time.perf_counter() - t
+    require(smt.get_last_route() == "host", "request (d) under HOST_ROUTE left the host")
+    costs["esc_chunks_d"]["host_route_max_abs_err"] = same_csr(kept_d, got,
+                                                                "esc_chunks_d against the host")
+    return costs
+
+
 def esc_timing_phase(ops: dict, kept: dict, name: str, smi: str) -> dict:
     """Phase 14: requests (a), (b) and (d) end to end with their stages
     (route_timing), (a)'s engine's device time by kernel, and each ESC
@@ -1566,8 +1600,9 @@ def esc_timing_phase(ops: dict, kept: dict, name: str, smi: str) -> dict:
     hyper = hyper_pair(HYPER_N, HYPER_N, HYPER_N, HYPER_NNZ, HYPER_NNZ, HYPER_SEEDS)
     engines[f"binned_{HYPER_N}"] = resident(*hyper, "binned")
     del hyper
+    costs = model_c_d(ops, kept["esc_chunks_d"])
     esc = dict(card=name, nvidia_smi=smi, e2e=e2e, engine_kernels_us_esc_binned_a=engine_us,
-               resident=engines)
+               resident=engines, cost_model_c_d=costs)
     phase("esc-timing", t0, f"{name} [{smi}]: " + " | ".join(
         [f"{label} ({r['route']}) end to end {r['seconds']:.4f} s = {r['nnz_c_per_s']:.4e} "
          f"nnz(C)/s (min of {PATH_RUNS}, each call the same bits"
@@ -1581,7 +1616,13 @@ def esc_timing_phase(ops: dict, kept: dict, name: str, smi: str) -> dict:
            f"{r['device_busy_share'] if r['device_busy_share'] is None else round(r['device_busy_share'], 4)}, "
            f"peak {r['peak_bytes'] / 2**30:.2f} GiB; cuSPARSE "
            f"{r['cusparse_ms'] if r['cusparse_ms'] is None else round(r['cusparse_ms'], 3)} ms; "
-           f"spgemm_host {r['spgemm_host_s']:.3f} s" for label, r in engines.items()]))
+           f"spgemm_host {r['spgemm_host_s']:.3f} s" for label, r in engines.items()]
+        + [f"{label}: the committed model's est_host {c['est_host_s']:.4f} s, est_dev "
+           f"{c['est_dev_s']:.4f} s -> {c['pick']} ({c['copied']} entries of one-entry rows "
+           f"of A, counted in {c['split_s'] * 1e3:.4f} ms, min of {PATH_RUNS})"
+           + (f"; the host route, one call, {c['host_route_s']:.4f} s, the device route "
+              f"({e2e[label]['route']}) {e2e[label]['seconds']:.4f} s"
+              if "host_route_s" in c else "") for label, c in costs.items()]))
     for label, r in e2e.items():
         print(f"[esc-stages] {label} ({r['route']}) sparse_matrix_multiply, host clock, the "
               f"fastest of {PATH_RUNS} calls ({r['seconds']:.4f} s) as the router timed it: "
@@ -2085,6 +2126,14 @@ HOST_RATE_POINTS = (
     ("random_1000_d0.1_reuse10", "random", 1000, 0.1, (63, 64)),
     ("random_1000_d0.316_reuse100", "random", 1000, 0.316, (65, 66)),
 )
+# spgemm_host at A's rows of one stored entry, each a copy of one B row
+# (host_copy_entry_rate, net of the partials term): one_per_row(m, k) times
+# a k^2 hypersparse_random B, n = (m, k) and the size nnz(B), B rows of ~100
+# and ~50 entries; request (c) stays held out.  Outputs under the threshold.
+COPY_ENTRY_POINTS = (
+    ("one_per_row_20k_x_30k", "one_per_row", (20_000, 30_000), 3_000_000, (121, 122)),
+    ("one_per_row_30k_x_10k", "one_per_row", (30_000, 10_000), 500_000, (123, 124)),
+)
 # spgemm_host's outputs past the threshold (host_out_page_rate): these
 # products' times net of the work terms fitted on HOST_RATE_POINTS.
 OUT_PAGE_POINTS = (("hyper_100k_reuse1", "hyper", 100_000, 1_000_000, (61, 62)),
@@ -2145,6 +2194,8 @@ def cost_operands(kind: str, n: int, size, seeds):
     if kind == "classic":  # request (c): one entry per row of A, n x CLASSIC_K
         return (one_per_row(n, CLASSIC_K, seeds[0]),
                 hypersparse_random(CLASSIC_K, CLASSIC_K, size, seeds[1]))
+    if kind == "one_per_row":  # n = (m, k): one entry per row of A, B k^2
+        return one_per_row(*n, seeds[0]), hypersparse_random(n[1], n[1], size, seeds[1])
     return operands(n, size, seeds)
 
 
@@ -2164,6 +2215,33 @@ def best_call(fn, runs: int = PATH_RUNS):
         torch.cuda.synchronize()
         best = min(best, time.perf_counter() - t0)
     return best, got, smt.get_last_route()
+
+
+def forced_rounds(call, fitted: dict) -> dict:
+    """``call`` on the host route and the device route under ``fitted``,
+    interleaved: one warm call each, then PATH_RUNS rounds of host, device
+    (one round where a warm call took over SLOW_CALL_S, which is no
+    near-tie), each synchronised, host clock.  Each way's seconds by round,
+    its route and last result, and the device route's last host stages."""
+    ways = (("host", HOST_ROUTE), ("device", DEVICE_ROUTE))
+    out = {"host": [], "device": [], "routes": {}, "results": {}, "stages": {}}
+
+    def run(way, cfg):
+        with config_set(**fitted), config_set(**cfg):
+            t0 = time.perf_counter()
+            out["results"][way] = call()
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            out["routes"][way] = smt.get_last_route()
+            if way == "device":  # on the ESC routes
+                out["stages"] = {k: round(v, 4) for k, v in api.get_last_route_stages().items()}
+        return seconds
+
+    warm = [run(way, cfg) for way, cfg in ways]
+    for _ in range(1 if max(warm) > SLOW_CALL_S else PATH_RUNS):
+        for way, cfg in ways:
+            out[way].append(run(way, cfg))
+    return out
 
 
 def host_s(fn, runs: int = PATH_RUNS) -> float:
@@ -2221,43 +2299,65 @@ def rate_fit(points: dict, key: str) -> dict:
 
 
 def host_rate_fit() -> dict:
-    """spgemm_host at each HOST_RATE_POINTS and OUT_PAGE_POINTS pair (warm,
-    min of PATH_RUNS): on HOST_RATE_POINTS JAX's sqrt(reuse) model's
-    host_rate_base (least squares in log space, the CPU's formula) and the
-    CUDA model's work terms, partials at host_partial_rate and output
-    entries at host_entry_rate (least squares in relative error); on
-    OUT_PAGE_POINTS the fresh pages of the output net of those terms
-    (host_out_page_rate, :func:`rate_fit`); each with its residuals."""
+    """spgemm_host at each HOST_RATE_POINTS, COPY_ENTRY_POINTS and
+    OUT_PAGE_POINTS pair (warm, min of PATH_RUNS): on HOST_RATE_POINTS JAX's
+    sqrt(reuse) model's host_rate_base (least squares in log space, the
+    CPU's formula) and the CUDA model's work terms, partials at
+    host_partial_rate and output entries at host_entry_rate (least squares
+    in relative error); on COPY_ENTRY_POINTS the entries of A's rows of one
+    stored entry (api._single_row_entries) net of those terms
+    (host_copy_entry_rate, :func:`rate_fit`); on OUT_PAGE_POINTS the fresh
+    pages of the output net of the three work terms (host_out_page_rate).
+    Each work point's residual under the two work terms and under the
+    three."""
     points = {}
-    for label, kind, n, size, seeds in HOST_RATE_POINTS + OUT_PAGE_POINTS:
+    for label, kind, n, size, seeds in HOST_RATE_POINTS + COPY_ENTRY_POINTS + OUT_PAGE_POINTS:
         a_sp, b_sp = cost_operands(kind, n, size, seeds)
         expand = expansion_size(a_sp.indices, a_sp.nnz, b_sp.indptr)
-        reuse = max(expand / max(api._est_result_nnz(expand, n, n), 1), 1.0)
+        m, n = a_sp.shape[0], b_sp.shape[1]
+        reuse = max(expand / max(api._est_result_nnz(expand, m, n), 1), 1.0)
         seconds, got, _ = best_call(lambda: spgemm_host(a_sp, b_sp, n_partials=expand))
         points[label] = dict(partials=expand, nnz=got.nnz, reuse=reuse, seconds=seconds,
+                             copied=api._single_row_entries(a_sp, b_sp),
                              fresh_bytes=api._fresh(4 * got.nnz, 8 * got.nnz),
                              partials_per_s=expand / seconds)
         del a_sp, b_sp, got
-    work = {label: points[label] for label, *_ in HOST_RATE_POINTS}
+    work = {label: points[label] for label, *_ in HOST_RATE_POINTS + COPY_ENTRY_POINTS}
     require(all(p["fresh_bytes"] == 0 for p in work.values()),
-            "a HOST_RATE_POINTS output passes the mmap threshold")
-    logs = [np.log(p["partials_per_s"]) - 0.5 * np.log(p["reuse"]) for p in work.values()]
+            "a HOST_RATE_POINTS or COPY_ENTRY_POINTS output passes the mmap threshold")
+    two_term = [points[label] for label, *_ in HOST_RATE_POINTS]
+    logs = [np.log(p["partials_per_s"]) - 0.5 * np.log(p["reuse"]) for p in two_term]
     base = float(np.exp(np.mean(logs)))
-    rows = np.array([[p["partials"], p["nnz"]] for p in work.values()])
-    rows = rows / np.array([p["seconds"] for p in work.values()])[:, None]
+    rows = np.array([[p["partials"], p["nnz"]] for p in two_term])
+    rows = rows / np.array([p["seconds"] for p in two_term])[:, None]
     inv = np.linalg.lstsq(rows, np.ones(len(rows)), rcond=None)[0]
     require(bool((inv > 0).all()), f"spgemm_host's two-term fit is not positive: {inv}")
-    for p in work.values():
+    copies = {}
+    for label, *_ in COPY_ENTRY_POINTS:
+        p = points[label]
+        rest_s = p["partials"] * inv[0] + (p["nnz"] - p["copied"]) * inv[1]
+        p["rate"] = p["copied"] / max(p["seconds"] - rest_s, 1e-6)
+        copies[label] = p
+    copy = rate_fit(copies, "rate")
+
+    def work_s(p):  # the three work terms
+        return (p["partials"] * inv[0] + p["copied"] / copy["rate"]
+                + (p["nnz"] - p["copied"]) * inv[1])
+
+    for p in two_term:
         p["residual"] = p["partials_per_s"] / (base * p["reuse"] ** 0.5) - 1.0
+    for p in work.values():
         p["two_term_residual"] = (p["partials"] * inv[0] + p["nnz"] * inv[1]) / p["seconds"] - 1.0
+        p["copy_term_residual"] = work_s(p) / p["seconds"] - 1.0
     pages = {}
     for label, *_ in OUT_PAGE_POINTS:
         p = points[label]
-        p["work_s"] = p["partials"] * inv[0] + p["nnz"] * inv[1]
+        p["work_s"] = work_s(p)
         p["rate"] = p["fresh_bytes"] / max(p["seconds"] - p["work_s"], 1e-6)
         pages[label] = p
     return dict(points=work, host_rate_base=base, host_partial_rate=float(1 / inv[0]),
-                host_entry_rate=float(1 / inv[1]), host_out_page_rate=rate_fit(pages, "rate"))
+                host_entry_rate=float(1 / inv[1]), host_copy_entry_rate=copy,
+                host_out_page_rate=rate_fit(pages, "rate"))
 
 
 def host_page_fit() -> dict:
@@ -2533,12 +2633,27 @@ def cold_main(fitted_json: str) -> int:
     return 0
 
 
+def pick_verdict(pick: str, host_rounds, device_rounds) -> dict:
+    """Whether ``pick`` ("host" or "device") is right: its route's least
+    time within PICK_MARGIN of the other's.  A wrong pick is ``unsteady``
+    where its rounds fall on both sides of the margin; ``ratios``: each
+    round's host/device seconds."""
+    ratios = [h / d for h, d in zip(host_rounds, device_rounds)]
+    picked = [r if pick == "host" else 1 / r for r in ratios]
+    best = {"host": min(host_rounds), "device": min(device_rounds)}
+    right = best[pick] <= PICK_MARGIN * best["device" if pick == "host" else "host"]
+    return dict(right=right, unsteady=not right and min(picked) <= PICK_MARGIN < max(picked),
+                ratios=ratios)
+
+
 def crossover_sweep(fitted: dict, cold: dict) -> tuple:
-    """Each COST_SWEEP request on the host route, the device route and as
-    the model decides (warm, :func:`best_call`) under this run's ``fitted``
-    rates, with the model's estimates and pick, the cold
-    run's pick and the committed defaults' pick beside it; a pick is wrong
-    where the other route is faster by more than PICK_MARGIN; each result
+    """Each COST_SWEEP request on the host route and the device route,
+    interleaved (:func:`forced_rounds`), and as the model decides (warm,
+    :func:`best_call`) under this run's ``fitted`` rates, with the model's
+    estimates and pick, the cold run's pick and the committed defaults'
+    pick beside it; a pick is wrong where the other route is faster by more
+    than PICK_MARGIN (each way's least time), and also ``unsteady`` where
+    its rounds fall on both sides of the margin; each result
     against scipy; the hand kernels' launches over the sweep (counts zeroed
     just before it)."""
     rows = []
@@ -2551,16 +2666,21 @@ def crossover_sweep(fitted: dict, cold: dict) -> tuple:
         call = lambda: smt.sparse_matrix_multiply(a_sp, b_sp, **kw)  # noqa: E731
         want = sweep_oracle(a_sp, b_sp, kw)
         times, routes, errs = {}, {}, {}
-        for way, cfg in (("host", HOST_ROUTE), ("device", DEVICE_ROUTE), ("model", {})):
-            with config_set(**fitted), config_set(**cfg):
-                times[way], got, routes[way] = best_call(call)
-                if way == "device":  # the last call's host stages, on the ESC routes
-                    stages = {k: round(v, 4) for k, v in api.get_last_route_stages().items()}
-            errs[way] = sweep_result_ok(f"{label} ({way})", got, want)
-            del got
-        del want
+        rounds = forced_rounds(call, fitted)
+        for way in ("host", "device"):
+            times[way] = min(rounds[way])
+            routes[way] = rounds["routes"][way]
+            errs[way] = sweep_result_ok(f"{label} ({way})", rounds["results"][way], want)
+        stages = rounds["stages"]
+        del rounds["results"]
+        with config_set(**fitted):
+            times["model"], got, routes["model"] = best_call(call)
+        errs["model"] = sweep_result_ok(f"{label} (model)", got, want)
+        del got, want
         pick = "host" if est_host < est_dev else "device"
-        other = "device" if pick == "host" else "host"
+        default_pick = "host" if default_host < default_dev else "device"
+        verdict = pick_verdict(pick, rounds["host"], rounds["device"])
+        ratios = verdict["ratios"]
         require(routes["host"] == "host" and routes["device"] != "host",
                 f"{label}: forced routes {routes}")
         require((routes["model"] == "host") == (pick == "host"),
@@ -2570,22 +2690,28 @@ def crossover_sweep(fitted: dict, cold: dict) -> tuple:
                  partials=int(expansion_size(a_sp.indices, a_sp.nnz, b_sp.indptr)), **kw,
                  est_host_s=est_host, est_dev_s=est_dev, pick=pick,
                  cold_pick=cold["picks"][label][2],
-                 default_pick="host" if default_host < default_dev else "device",
+                 default_pick=default_pick,
+                 default_pick_right=pick_verdict(default_pick, rounds["host"],
+                                                 rounds["device"])["right"],
                  device_stages=stages,
                  host_s=times["host"], device_s=times["device"], model_s=times["model"],
+                 host_rounds_s=rounds["host"], device_rounds_s=rounds["device"],
+                 host_over_device_rounds=ratios,
                  device_route=routes["device"], model_route=routes["model"], faster=faster,
-                 pick_right=times[pick] <= PICK_MARGIN * times[other], max_abs_err=errs)
+                 pick_right=verdict["right"], unsteady=verdict["unsteady"], max_abs_err=errs)
         rows.append(r)
         print(f"[cost-sweep] {label}{' (held out)' if r['held_out'] else ''}: "
               f"{r['partials']:.4e} partials | est_host {est_host:.4e} s, est_dev {est_dev:.4e} s "
               f"-> {pick} (cold run: {r['cold_pick']}; committed defaults: {r['default_pick']}) | "
               f"host route {r['host_s']:.4f} s, device route ({r['device_route']}) "
-              f"{r['device_s']:.4f} s, as the model decides ({r['model_route']}) "
+              f"{r['device_s']:.4f} s (min of {len(ratios)} interleaved rounds, host/device "
+              f"each round {[round(x, 3) for x in ratios]}), as the model decides "
+              f"({r['model_route']}) "
               f"{r['model_s']:.4f} s{f' (device route stages {stages})' if stages else ''} | "
               f"faster: {faster} by "
               f"x{max(times['host'], times['device']) / min(times['host'], times['device']):.2f}, "
-              f"{'right' if r['pick_right'] else 'WRONG'} pick (margin {PICK_MARGIN}) | max abs "
-              f"err vs scipy {errs}", flush=True)
+              f"{'right' if r['pick_right'] else 'WRONG'} pick (margin {PICK_MARGIN})"
+              f"{' unsteady' if r['unsteady'] else ''} | max abs err vs scipy {errs}", flush=True)
     launches = dict(LAUNCHES)
     for key in DENSE_PATH_KERNELS:
         require(launches[key] > 0, f"the cost-model sweep launched no {KERNELS[key][0]}")
@@ -2618,7 +2744,9 @@ def cost_model_phase(sa_sp, sb_sp, name: str, smi: str) -> dict:
                 host_copy_rate=host_copy_fit(),
                 host_upload_rate=dev["host_upload_rate"])
     fitted = dict(host_rate_base=fit["host_rate_base"], host_partial_rate=fit["host_partial_rate"],
-                  host_entry_rate=fit["host_entry_rate"], esc_fixed_s=dev["esc_fixed_s"],
+                  host_entry_rate=fit["host_entry_rate"],
+                  host_copy_entry_rate=fit["host_copy_entry_rate"]["rate"],
+                  esc_fixed_s=dev["esc_fixed_s"],
                   esc_engine_rate=dev["esc_engine_rate"],
                   **{key: f["rate"] for key, f in work.items()})
     cold = cold_run(fitted)
@@ -2632,13 +2760,20 @@ def cost_model_phase(sa_sp, sb_sp, name: str, smi: str) -> dict:
           f"{link_line(link)} | a fresh process (cold, {cold['seconds']:.1f} s): "
           f"{link_line(cold['link'])} | probe download warm/cold x{down_ratio:.3f} | "
           "spgemm_host, min of 3: " + "; ".join(
-              f"{label}: {p['partials']:.4e} partials, {p['nnz']:.4e} entries, reuse "
-              f"{p['reuse']:.2f}, {p['seconds']:.4f} s, {p['partials_per_s']:.4e}/s, residual "
-              f"{p['residual']:+.3f} (sqrt-reuse), {p['two_term_residual']:+.3f} (work terms)"
+              f"{label}: {p['partials']:.4e} partials, {p['nnz']:.4e} entries "
+              f"({p['copied']:.4e} of one-entry rows), reuse {p['reuse']:.2f}, "
+              f"{p['seconds']:.4f} s, {p['partials_per_s']:.4e}/s, residual "
+              + (f"{p['residual']:+.3f} (sqrt-reuse), " if "residual" in p else "")
+              + f"{p['two_term_residual']:+.3f} (two work terms), "
+              f"{p['copy_term_residual']:+.3f} (with the copy term)"
               for label, p in fit["points"].items())
           + f" | fit host_rate_base {fit['host_rate_base']:.4e} (the CPU's formula); "
           f"host_partial_rate {fit['host_partial_rate']:.4e}, host_entry_rate "
-          f"{fit['host_entry_rate']:.4e} | windowed engine on the card, min of {PATH_RUNS}: "
+          f"{fit['host_entry_rate']:.4e}, host_copy_entry_rate "
+          f"{fit['host_copy_entry_rate']['rate']:.4e} (net of the partials term: "
+          + ", ".join(f"{label} {p['rate']:.4e}"
+                      for label, p in fit["host_copy_entry_rate"]["points"].items())
+          + f") | windowed engine on the card, min of {PATH_RUNS}: "
           + "; ".join(f"{label}: {p['partials']:.4e} partials, {p['seconds']:.4f} s, residual "
                       f"{p['residual']:+.3f}" for label, p in dev["engine"].items())
           + f": esc_fixed_s {dev['esc_fixed_s']:.4e}, esc_engine_rate {dev['esc_engine_rate']:.4e}"
@@ -2652,12 +2787,12 @@ def cost_model_phase(sa_sp, sb_sp, name: str, smi: str) -> dict:
     t1 = time.perf_counter()
     rows, launches = crossover_sweep(fitted, cold)
     wrong = [r["label"] for r in rows if not r["pick_right"]]
+    unsteady = [r["label"] for r in rows if r["unsteady"]]
     same = all(r["pick"] == r["cold_pick"] for r in rows)
-    default_wrong = [r["label"] for r in rows if (r["default_pick"] == r["pick"])
-                     != r["pick_right"]]
+    default_wrong = [r["label"] for r in rows if not r["default_pick_right"]]
     a_row = next(r for r in rows if r["label"] == "sparse_hyper_200k")
     phase("cost-sweep", t1, f"{len(rows)} requests ({len(HELD_OUT)} held out), this run's fit: "
-          f"{len(wrong)} wrong picks {wrong} | same picks cold and warm: "
+          f"{len(wrong)} wrong picks {wrong} (unsteady: {unsteady}) | same picks cold and warm: "
           f"{'yes' if same else 'no'} | the committed defaults would pick wrong at "
           f"{default_wrong} (by the same times) | probe download "
           f"rate warm/cold x{down_ratio:.3f}; 200 MiB download over the probe's prediction: warm "
@@ -2671,7 +2806,8 @@ def cost_model_phase(sa_sp, sb_sp, name: str, smi: str) -> dict:
           f"last: {demo[-1]}")
     return dict(card=name, nvidia_smi=smi, host=threads, link=link, cold=cold, host_rate=fit,
                 host_work=work, engine=dev["engine"], fitted=fitted, sweep=rows,
-                launches=launches, wrong_picks=wrong, default_wrong_picks=default_wrong,
+                launches=launches, wrong_picks=wrong, unsteady_picks=unsteady,
+                default_wrong_picks=default_wrong,
                 same_picks=same,
                 probe_down_warm_over_cold=down_ratio,
                 phase_s=time.perf_counter() - t0)

@@ -332,6 +332,15 @@ def _fresh(*nbytes) -> int:
     return sum(b for b in nbytes if b > _MMAP_BYTES)
 
 
+def _single_row_entries(a_sp, b_sp) -> int:
+    """The output entries of the rows of A that hold one stored entry: each
+    is a copy of the B row its entry selects, so their count is the sum of
+    those B rows' lengths.  O(rows of A and B); B's indices are not read."""
+    indptr = np.asarray(a_sp.indptr)
+    starts = indptr.take(np.flatnonzero(np.diff(indptr) == 1))
+    return int(np.diff(b_sp.indptr).take(np.asarray(a_sp.indices).take(starts)).sum())
+
+
 def _cuda_route_costs(expand: int, a_sp, b_sp, link: dict, request: str, symmetric: bool,
                       full: bool):
     """(est_host, est_dev) of a CUDA request: each side prices the host work
@@ -347,7 +356,9 @@ def _cuda_route_costs(expand: int, a_sp, b_sp, link: dict, request: str, symmetr
     (``expand`` is then JAX's, twice the expansion of H Q; ``full``:
     ``compute_full_matrix``).  The host side: ``spgemm_host`` at
     ``host_partial_rate`` per partial and ``host_entry_rate`` per output
-    entry, and its output's fresh pages, which its threads fault in
+    entry, but ``host_copy_entry_rate`` for the entries of A's rows of one
+    stored entry (:func:`_single_row_entries`: each such row copies one B
+    row), and its output's fresh pages, which its threads fault in
     together, at ``host_out_page_rate``; for the triple scipy's
     ``(H Q) H^T`` at ``scipy_partial_rate``; a dense result's f64 passes
     (``toarray``, ``triu``, the mirror) at ``host_f64_rate`` (a symmetric
@@ -391,9 +402,12 @@ def _cuda_route_costs(expand: int, a_sp, b_sp, link: dict, request: str, symmetr
         return est_host, est_dev + download((val_bytes * m * m, 8 * m * m))
     slots = m * n
     nnz = _est_result_nnz(expand, m, n)
+    copied = _single_row_entries(a_sp, b_sp)
     if symmetric and m == n:
         nnz = nnz * (m + 1) // (2 * m)  # the upper triangle's share
-    est_host = (expand / cfg.host_partial_rate + nnz / cfg.host_entry_rate
+        copied = copied * (m + 1) // (2 * m)
+    est_host = (expand / cfg.host_partial_rate + copied / cfg.host_copy_entry_rate
+                + max(nnz - copied, 0) / cfg.host_entry_rate
                 + _fresh(4 * nnz, 8 * nnz) / cfg.host_out_page_rate)
     # to_scipy: indices and values over the link, its host side (their staged
     # copies, the values cast to f64 in theirs, csr_matrix) per entry

@@ -103,6 +103,14 @@ class Config:
     # than host_page_rate);
     host_partial_rate: float = 2.35e9
     host_entry_rate: float = 1.326e8
+    # but the output entries of A's rows of one stored entry, each a copy of
+    # one B row, at host_copy_entry_rate (api._single_row_entries; fitted net
+    # of the partials term on chip_smoke.py's COPY_ENTRY_POINTS: one entry
+    # per row of a 20,000 x 30,000 A times a 30,000^2 hypersparse B of 3e6
+    # entries, and of a 30,000 x 10,000 A times 10,000^2 of 5e5; 2.611e8 and
+    # 6.335e8 in the two runs, each in a process of its own, NVIDIA H100 80GB
+    # HBM3, 700.00 W);
+    host_copy_entry_rate: float = 4.067e8
     host_out_page_rate: float = 2.043e9
     # to_scipy of a packed result on the card, its whole host side (the
     # downloads of indices and values, the values cast to f64 in theirs,

@@ -17,6 +17,7 @@ import pytest
 import scipy.sparse as sp
 import torch
 
+import chip_smoke
 import sparse_matrix_mult_tpu as jsmm
 import sparse_matrix_mult_tpu_torch as tsmm
 from sparse_matrix_mult_tpu import api as japi
@@ -27,10 +28,12 @@ from sparse_matrix_mult_tpu_torch.utils.testing import hypersparse_random
 
 ORACLE = dict(rtol=1e-5, atol=1e-8)
 # A link of 2 ms fixed cost, 5 GB/s up and 2 GB/s down, and round host rates
-# (fetch_np's host copy at 6 GB/s, fresh pages at 3 GB/s).
+# (fetch_np's host copy at 6 GB/s, fresh pages at 3 GB/s; spgemm_host's
+# entries at 1e8/s, those of A's one-entry rows at 4e8/s).
 MODEL = dict(auto_calibrate_link=False, host_rate_base=1e8, link_fixed_s=2e-3,
              link_up_bytes_per_s=5e9, link_down_bytes_per_s=2e9, host_pack_rate=5e8,
-             host_partial_rate=3e9, host_entry_rate=1e8, host_csr_rate=2e8, esc_plan_rate=1.5e8,
+             host_partial_rate=3e9, host_entry_rate=1e8, host_copy_entry_rate=4e8,
+             host_csr_rate=2e8, esc_plan_rate=1.5e8,
              triu_rebuild_rate=7e7, host_f64_rate=3e8, dense_csr_rate=5e7,
              scipy_partial_rate=1.5e8, host_copy_rate=6e9, host_page_rate=3e9,
              host_out_page_rate=1e9, host_upload_rate=4e8,
@@ -145,8 +148,25 @@ def _upload(a, b, val_bytes):
     return 2e-3 + (4 + val_bytes) * (a.nnz + b.nnz) / 5e9 + (a.nnz + b.nnz) / 4e8
 
 
-def _host_side(expand, nnz):
-    return expand / 3e9 + nnz / 1e8 + _page(4 * nnz, 8 * nnz) * 3e9 / 1e9
+def _host_side(expand, nnz, copied=0):
+    """spgemm_host: partials, the entries of A's one-entry rows (``copied``),
+    the other entries, and the output's fresh pages."""
+    return (expand / 3e9 + copied / 4e8 + max(nnz - copied, 0) / 1e8
+            + _page(4 * nnz, 8 * nnz) * 3e9 / 1e9)
+
+
+def _copied(a, b, symmetric=False):
+    """The output entries of A's rows of one stored entry, row by row: the
+    length of the B row each selects (the upper triangle's share of them
+    for a symmetric output)."""
+    total = 0
+    for i in range(a.shape[0]):
+        lo, hi = a.indptr[i], a.indptr[i + 1]
+        if hi - lo == 1:
+            j = a.indices[lo]
+            total += int(b.indptr[j + 1] - b.indptr[j])
+    m = a.shape[0]
+    return total * (m + 1) // (2 * m) if symmetric else total
 
 
 # (request, operands (m, k, n, da, db), symmetric, expansion): each branch of
@@ -175,7 +195,8 @@ def test_cuda_sparse_costs_are_the_formula(config, request_kind, shape, symmetri
         nnz = nnz * (m + 1) // (2 * m)
     est_host, est_dev = api._route_costs(expand, a, b, "cuda", request=request_kind,
                                          symmetric=symmetric)
-    assert est_host == pytest.approx(_host_side(expand, nnz), rel=1e-12)
+    assert est_host == pytest.approx(_host_side(expand, nnz, _copied(a, b, symmetric)),
+                                     rel=1e-12)
     csr = (4 + val) * nnz / 2e9 + nnz / 2e8
     if request_kind.startswith("esc"):
         want = (a.nnz / 1.5e8 + 2e-3 + expand / 2e9 + csr
@@ -219,7 +240,8 @@ def test_cuda_triple_and_dense_output_costs_are_the_formula(config, full):
     nnz = api._est_result_nnz(50_000, m, n)
     est_host, est_dev = api._route_costs(50_000, a, b, "cuda", out_bytes=val * m * n,
                                          request="dense_output")
-    assert est_host == pytest.approx(_host_side(50_000, nnz) + m * n / 3e8, rel=1e-12)
+    assert est_host == pytest.approx(_host_side(50_000, nnz, _copied(a, b)) + m * n / 3e8,
+                                     rel=1e-12)
     assert est_dev == pytest.approx(_upload(a, b, val) + _down((val * m * n, 8 * m * n)),
                                     rel=1e-12)
     # A symmetric square output: toarray touches the triangle's half of the pages.
@@ -228,9 +250,100 @@ def test_cuda_triple_and_dense_output_costs_are_the_formula(config, full):
     nnz = api._est_result_nnz(50_000, m, n) * (m + 1) // (2 * m)
     est_host, est_dev = api._route_costs(50_000, a, b, "cuda", out_bytes=val * m * n,
                                          request="dense_output", symmetric=True)
-    assert est_host == pytest.approx(_host_side(50_000, nnz) + 0.5 * m * n / 3e8, rel=1e-12)
+    assert est_host == pytest.approx(
+        _host_side(50_000, nnz, _copied(a, b, symmetric=True)) + 0.5 * m * n / 3e8, rel=1e-12)
     assert est_dev == pytest.approx(_upload(a, b, val) + _down((val * m * n, 8 * m * n)),
                                     rel=1e-12)
+
+
+def _one_per_row(m, k, seed):
+    rng = np.random.default_rng(seed)
+    return sp.csr_matrix((rng.uniform(size=m), rng.integers(0, k, m), np.arange(m + 1)),
+                         shape=(m, k))
+
+
+def _rows_of(lengths, k, seed):
+    """A CSR matrix whose rows hold ``lengths`` entries in distinct random columns."""
+    rng = np.random.default_rng(seed)
+    cols = [np.sort(rng.choice(k, size=n, replace=False)) for n in lengths]
+    indptr = np.concatenate([[0], np.cumsum(lengths)])
+    return sp.csr_matrix((rng.uniform(size=indptr[-1]), np.concatenate(cols), indptr),
+                         shape=(len(lengths), k))
+
+
+def _copy_operands(kind, seed=0):
+    """(A, B) with A 1500 x 1000 and B 1000 x 1500: A of one entry per row,
+    rows of 0, 1, 2 or 5 entries, or sp.random's rows of ~3 (B's rows of
+    0 to 15)."""
+    rng = np.random.default_rng(seed + 50)
+    b = _rows_of(rng.integers(0, 16, 1000), 1500, seed + 1)
+    if kind == "one_per_row":
+        return _one_per_row(1500, 1000, seed), b
+    if kind == "mixed":
+        return _rows_of(rng.choice([0, 1, 1, 2, 5], 1500), 1000, seed), b
+    return sp.random(1500, 1000, density=0.003, format="csr", random_state=seed), b
+
+
+@pytest.mark.parametrize("kind,want", [("one_per_row", "all"), ("mixed", "some"),
+                                       ("random", "some"), ("empty_rows", "none")])
+def test_single_row_entries_is_a_loop_over_the_rows(kind, want):
+    if kind == "empty_rows":
+        a, b = _rows_of([0, 2, 0, 3] * 100, 1000, 3), _copy_operands("mixed")[1]
+    else:
+        a, b = _copy_operands(kind)
+    got = api._single_row_entries(a, b)
+    assert isinstance(got, int) and got == _copied(a, b)
+    expand = int(api.expansion_size(a.indices, a.nnz, b.indptr))
+    assert {"all": got == expand, "some": 0 < got < expand, "none": got == 0}[want]
+
+
+@pytest.mark.parametrize("symmetric", [False, True])
+@pytest.mark.parametrize("kind", ["one_per_row", "mixed", "random"])
+def test_copy_term_is_the_formula(config, kind, symmetric):
+    """spgemm_host's entries split by A's row lengths on CUDA: those of the
+    one-entry rows at host_copy_entry_rate, the rest at host_entry_rate;
+    the CPU's price (JAX's) has no such term."""
+    a, b = _copy_operands(kind, seed=7)
+    m, n = a.shape[0], b.shape[1]
+    expand = int(api.expansion_size(a.indices, a.nnz, b.indptr))
+    nnz = api._est_result_nnz(expand, m, n)
+    if symmetric:
+        nnz = nnz * (m + 1) // (2 * m)
+    copied = _copied(a, b, symmetric)
+    est_host, _ = api._route_costs(expand, a, b, "cuda", request="esc", symmetric=symmetric)
+    assert est_host == pytest.approx(_host_side(expand, nnz, copied), rel=1e-12)
+    cpu = api._route_costs(expand, a, b, "cpu", request="esc", symmetric=symmetric)
+    config(host_copy_entry_rate=1.0)
+    assert api._route_costs(expand, a, b, "cpu", request="esc", symmetric=symmetric) == cpu
+    slower = api._route_costs(expand, a, b, "cuda", request="esc", symmetric=symmetric)[0]
+    assert slower - est_host == pytest.approx(copied - copied / 4e8, rel=1e-9)
+
+
+@pytest.mark.parametrize("side", ["host", "device"])
+def test_one_per_row_request_follows_the_copy_rate(config, on_cuda, side):
+    """A small request of one entry per row of A: to the host with the copy
+    rate set above its crossover, to the device below it; either way
+    scipy's answer."""
+    config(host_compute_limit=0)
+    a = _one_per_row(4000, 5000, 11)
+    b = hypersparse_random(5000, 5000, 100_000, 12)
+    expand = int(api.expansion_size(a.indices, a.nnz, b.indptr))
+    route = api._sparse_device_route(expand, a, b, api._esc_limit(None), "cuda")
+    assert route == "esc"
+    copied = api._single_row_entries(a, b)
+    assert copied == expand
+    _, est_dev = api._route_costs(expand, a, b, "cuda", request=route)
+    rest = max(api._est_result_nnz(expand, 4000, 5000) - copied, 0)
+    crossover = copied / (est_dev - expand / 3e9 - rest / 1e8)
+    assert crossover > 0
+    config(host_copy_entry_rate=crossover * (2.0 if side == "host" else 0.5))
+    got = tsmm.sparse_matrix_multiply(a, b, device="cuda")
+    assert (tsmm.get_last_route() == "host") == (side == "host")
+    ref = (a @ b).tocsr()
+    ref.sort_indices()
+    np.testing.assert_array_equal(got.indptr, ref.indptr)
+    np.testing.assert_array_equal(got.indices, ref.indices)
+    np.testing.assert_allclose(got.data, ref.data, **ORACLE)
 
 
 @pytest.mark.parametrize("request_kind", ["esc", "dense", "dense_chunks", "esc_chunks",
@@ -437,3 +550,26 @@ def test_scan_stops_once_past_the_cutoff(monkeypatch):
     groups.clear()
     assert api._block_sparse(sp.csr_matrix(np.eye(64)), 4, 0.25)  # a diagonal: 16 of 256 blocks
     assert len(groups) == 16
+
+
+# ---------------------------------------------------------------------------
+# E. the sweep's verdict on a pick (chip_smoke.py phase 20)
+# ---------------------------------------------------------------------------
+
+
+# (pick, host seconds by round, device seconds by round, right, unsteady)
+VERDICTS = [
+    ("host", [1.0, 1.1, 1.0], [2.0, 2.1, 1.9], True, False),
+    ("device", [1.0, 1.1, 1.0], [2.0, 2.1, 1.9], False, False),  # steadily slower
+    ("device", [1.0, 1.9, 1.8], [1.2, 1.2, 1.2], False, True),  # rounds straddle 1.15
+    ("host", [1.1, 1.0, 1.05], [1.0, 0.95, 1.0], True, False),  # a tie within the margin
+    ("host", [2.0], [1.0], False, False),  # one round (a slow warm call)
+]
+
+
+@pytest.mark.parametrize("pick,host,device,right,unsteady", VERDICTS)
+def test_sweep_verdict_tells_a_tie_from_a_fault(pick, host, device, right, unsteady):
+    verdict = chip_smoke.pick_verdict(pick, host, device)
+    assert chip_smoke.PICK_MARGIN == 1.15
+    assert (verdict["right"], verdict["unsteady"]) == (right, unsteady)
+    assert verdict["ratios"] == pytest.approx([h / d for h, d in zip(host, device)])
