@@ -128,7 +128,8 @@ Phases, one line each:
                 (d) 1,000,000^2 with nnz 7e6 per operand ("esc_chunks", its
                 chunk count shown), (e) 30,000 x 10,000 at d = 0.002 times
                 10,000^2 at d = 0.01 ("dense_chunks": K3, split_bf16 x2,
-                matmul_full and K4 per chunk);
+                matmul_full and K4 per chunk; the committed model's est_dev
+                beside its one call);
                 the ESC requests launch no hand kernel.  Each product
                 against scipy's (identical structure, values within the
                 oracle); (a) twice gives the same bits;
@@ -136,7 +137,8 @@ Phases, one line each:
                 call's bits against the first's, and the stages of the
                 fastest call as the router timed them ([esc-stages], one
                 line each: the binned and windowed routes side by side on
-                the same operands); (a)'s engine's device time by kernel;
+                the same operands; (b)'s and (d)'s beside the stages the
+                committed model prices); (a)'s engine's device time by kernel;
                 and each engine
                 device-resident (multiply(plan=...) at (a) and at
                 1,000,000^2, d = 1e-5, ~1e8 partials; the windowed engine at
@@ -147,8 +149,9 @@ Phases, one line each:
                 and two yardsticks the port never calls: cuSPARSE SpGEMM
                 (torch.sparse.mm of the CSR tensors) and the host OpenMP
                 kernel spgemm_host; the cost model's est_host and est_dev
-                at (c) and (d), the time of its count of the entries of
-                A's one-entry rows there, and (d) once on the host route.
+                at (c), (d) and (e), the time of its count of the entries of
+                A's one-entry rows there, (d) and (e) once on the host
+                route and (e) once more on its device route.
                 Then one JSON line {"esc": ...}.
  15-19. dist-* -- the multi-device layer (parallel/, io.py) on a row mesh
                 of DIST_SLOTS = 4 slots, all on the one card (the ring hands
@@ -189,41 +192,51 @@ Phases, one line each:
      cost-model -- the router's host/device cost model (api._route_costs)
                 fitted on this host and link: the first writes of 64 and
                 128 MiB host arrays (host_page_rate, which the other rates
-                are net of); spgemm_host at reuse ~1, ~10 and ~100 (JAX's
-                sqrt(reuse) host_rate_base and the CUDA model's
-                host_partial_rate and host_entry_rate), at two products of
-                an A with one entry per row (host_copy_entry_rate, net of
-                the partials term; each point's residual under the two
-                work terms and with the copy term) and at two products
-                whose output passes the mmap threshold
-                (host_out_page_rate); the windowed engine
-                on the card and from_scipy's uploads; the other host-work
-                rates of the CUDA model, each on its own fit points
-                (to_scipy of a packed result on the card net of the link,
-                the window plan, the full triangle's index rebuild, f64
-                panels, csr_matrix of a small panel, scipy's triple,
-                dense_pack, fetch_np's staged download of 64 and 128 MiB
-                cast to f64, beside it the same kept f32 and a fit pooling
-                both), each with its residuals; the link probe in a fresh process (this
+                are net of); fetch_np's downloads of 4 and 12 MiB cast to
+                f64 into arrays under the mmap threshold (host_copy_rate;
+                beside it the same kept f32 and a fit pooling both);
+                spgemm_host at reuse ~1, ~10 and ~100 (JAX's sqrt(reuse)
+                host_rate_base and the CUDA model's host_partial_rate and
+                host_entry_rate), at two products of an A with one entry
+                per row (host_copy_entry_rate, net of the partials term;
+                each point's residual under the two work terms and with the
+                copy term) and at two products whose output passes the mmap
+                threshold (host_out_page_rate); the windowed ESC route on
+                the card at four products, two of them past the threshold,
+                by the stages the router times (the engine: esc_fixed_s and
+                esc_engine_rate; the uploads net of their three transfers
+                an operand: host_upload_rate; the window plan: esc_plan_rate;
+                to_scipy net of its link, copies and fresh pages:
+                host_csr_rate); the row-chunked ESC route at 18, 9 and 4
+                chunks of one product and 12 of another (host_slice_rate on
+                the "download" stage net of the rest of it; [chunk-stages],
+                one line each: every stage priced beside the measured one,
+                the priced chunk count beside the route's); the dense
+                routes' host-work rates, each on its own fit points (the
+                full triangle's index rebuild, f64 panels, csr_matrix of a
+                small panel, scipy's triple, dense_pack), each with its
+                residuals; the link probe in a fresh process (this
                 script with --cold-cost-model: the cold run) and here
                 (warm), each beside a directly timed 200 MiB download by
                 fetch_np and upload; then [cost-sweep], one line per
-                request (nine and six held out): the model's estimates and pick
-                under this run's fit, the cold run's pick (the same fit)
-                and the committed defaults' pick beside it, the host and
-                device routes interleaved (a warm call each, then 3 rounds
-                of host, device; 1 where a warm call took over 0.5 s; each
-                round's host/device ratio) and the model's route, warm, min
-                of 3 (1 likewise), the pick wrong only where the other
-                route is faster by more than 1.15x (each way's least
-                time), marked unsteady where its rounds fall on both sides
-                of that margin, each
-                result against scipy at the oracle, K1-K4 launched over the
-                sweep; whether both runs made the same picks, the probes'
-                ratio, request (a) as the model decides against the faster
-                forced route; then (demo) examples/demo_torch.py on the
-                card, every line [ok].  The counted requests of phases 4, 8,
-                11 and 13 print the model's est_host/est_dev; one the model
+                request (nine and seven held out, request (d) among them): the
+                model's estimates and pick under this run's fit, the cold
+                run's pick (the same fit) and the committed defaults' pick
+                beside it, the host and device routes interleaved (a warm
+                call each, then 3 rounds of host, device; 1 where a warm
+                call took over 0.5 s; each round's host/device ratio), an
+                ESC route's device stages beside the ones this run's fit
+                prices, and the model's route, warm, min of 3 (1 likewise),
+                the pick wrong only where the other route is faster by more
+                than 1.15x (each way's least time), marked unsteady where
+                its rounds fall on both sides of that margin, each result
+                against scipy at the oracle, K1-K4 launched over the sweep;
+                whether both runs made the same picks, the probes' ratio,
+                request (a) as the model decides against the faster forced
+                route, request (d)'s est_dev against its device route and
+                its picks; then (demo) examples/demo_torch.py on the card,
+                every line [ok].  The counted requests of phases 4, 8, 11
+                and 13 print the model's est_host/est_dev; one the model
                 would send to the host is pinned on its device route
                 (ON_DEVICE) and named.  The link is calibrated once before
                 phase 4, so no first-call time includes it.  Then one JSON
@@ -413,6 +426,7 @@ ESC_REQUESTS = (
 # The ladder's requests timed end to end with their stages (phase 14): the
 # binned and windowed routes on the same operands side by side, and the chunks.
 TIMED_ESC = ("esc_binned_a", "esc_windowed_b", "esc_chunks_d")
+PRICED_ESC = ("esc_windowed_b", "esc_chunks_d")  # their stages beside the model's
 
 K3_OPERAND_10K, K3_SIBLING, K3_BU = f"operand_{N}", f"sibling_operand_{SIB_N}", f"bu_{BSR_N}"
 K3_INV_H, K3_INV_Q = f"inversion_h_{INV_OBS}x{INV_STATE}", f"inversion_q_{INV_STATE}"
@@ -1445,6 +1459,10 @@ def esc_main_phase(ops: dict):
         + ["esc_binned_a twice: the same bits",
            "dense_chunks_e extracted by " + ("K4" if per_request["dense_chunks_e"]["dense_to_csr"]
                                              else "host packing"),
+           f"dense_chunks_e: the committed model's est_dev "
+           f"{MODEL_ESTIMATES['dense_chunks_e'][1]:.4f} s (est_host "
+           f"{MODEL_ESTIMATES['dense_chunks_e'][0]:.4f} s), its one call "
+           f"{seconds['dense_chunks_e']:.4f} s",
            model_note([label for label, _, _, _, _ in ESC_REQUESTS]),
            f"launches by request {per_request}",
            f"launches {launches_esc}"]))
@@ -1552,26 +1570,37 @@ def resident(a_sp, b_sp, engine: str) -> dict:
 
 
 def model_c_d(ops: dict, kept_d) -> dict:
-    """The cost model's estimates of requests (c) and (d) as phase 13 priced
-    them (the committed rates), the time of the split of their output
-    entries by A's row lengths (api._single_row_entries), and (d) on the
-    host route once, its result the oracle of ``kept_d``, the device
-    route's."""
+    """The cost model's estimates of requests (c), (d) and (e) as phase 13
+    priced them (the committed rates), the time of the split of their output
+    entries by A's row lengths (api._single_row_entries), (d) and (e) on the
+    host route once, (d)'s result the oracle of ``kept_d``, the device
+    route's, and (e) once more on its device route (warm), against the host
+    route's result."""
     costs = {}
-    for label, key in (("esc_classic_c", "classic"), ("esc_chunks_d", "chunks")):
+    for label, key in (("esc_classic_c", "classic"), ("esc_chunks_d", "chunks"),
+                       ("dense_chunks_e", "dchunks")):
         a_sp, b_sp = ops[key]
         est_host, est_dev = MODEL_ESTIMATES[label]
         costs[label] = dict(est_host_s=est_host, est_dev_s=est_dev,
                             pick="host" if est_host < est_dev else "device",
                             copied=api._single_row_entries(a_sp, b_sp),
                             split_s=host_s(lambda: api._single_row_entries(a_sp, b_sp)))
-    with config_set(**HOST_ROUTE):
-        t = time.perf_counter()
-        got = smt.sparse_matrix_multiply(*ops["chunks"])
-        costs["esc_chunks_d"]["host_route_s"] = time.perf_counter() - t
-    require(smt.get_last_route() == "host", "request (d) under HOST_ROUTE left the host")
-    costs["esc_chunks_d"]["host_route_max_abs_err"] = same_csr(kept_d, got,
-                                                                "esc_chunks_d against the host")
+    for label, key in (("esc_chunks_d", "chunks"), ("dense_chunks_e", "dchunks")):
+        with config_set(**HOST_ROUTE):
+            t = time.perf_counter()
+            got = smt.sparse_matrix_multiply(*ops[key])
+            costs[label]["host_route_s"] = time.perf_counter() - t
+        require(smt.get_last_route() == "host", f"{label} under HOST_ROUTE left the host")
+        if label == "dense_chunks_e":
+            with config_set(**DEVICE_ROUTE):
+                t = time.perf_counter()
+                kept_d = smt.sparse_matrix_multiply(*ops[key])
+                torch.cuda.synchronize()
+                costs[label]["device_route_s"] = time.perf_counter() - t
+            require(smt.get_last_route() == "dense_chunks",
+                    f"{label} on its device route took {smt.get_last_route()!r}")
+        costs[label]["host_route_max_abs_err"] = same_csr(kept_d, got, f"{label} against the host")
+        del got
     return costs
 
 
@@ -1585,6 +1614,8 @@ def esc_timing_phase(ops: dict, kept: dict, name: str, smi: str) -> dict:
     e2e = {label: route_timing(*ops[requests[label][0]],
                                {**requests[label][1], **pinned_like(label)}, kept[label], label)
            for label in TIMED_ESC}
+    for label in PRICED_ESC:  # the routes the CUDA model prices by their stages
+        e2e[label]["priced"] = api._request_stage_costs(*ops[requests[label][0]], DEVICE)
     a_sp, b_sp = ops["esc"]
     expand = expansion_size(a_sp.indices, a_sp.nnz, b_sp.indptr)
     plan = api._binned_plan_for(a_sp, b_sp, expand)
@@ -1621,12 +1652,19 @@ def esc_timing_phase(ops: dict, kept: dict, name: str, smi: str) -> dict:
            f"{c['est_dev_s']:.4f} s -> {c['pick']} ({c['copied']} entries of one-entry rows "
            f"of A, counted in {c['split_s'] * 1e3:.4f} ms, min of {PATH_RUNS})"
            + (f"; the host route, one call, {c['host_route_s']:.4f} s, the device route "
-              f"({e2e[label]['route']}) {e2e[label]['seconds']:.4f} s"
+              + (f"(dense_chunks, one warm call) {c['device_route_s']:.4f} s"
+                 if "device_route_s" in c
+                 else f"({e2e[label]['route']}) {e2e[label]['seconds']:.4f} s")
               if "host_route_s" in c else "") for label, c in costs.items()]))
     for label, r in e2e.items():
+        priced = r.get("priced")
         print(f"[esc-stages] {label} ({r['route']}) sparse_matrix_multiply, host clock, the "
               f"fastest of {PATH_RUNS} calls ({r['seconds']:.4f} s) as the router timed it: "
-              + json.dumps(r["stages"]), flush=True)
+              + json.dumps(r["stages"])
+              + ("; priced by the committed model (est_dev "
+                 f"{MODEL_ESTIMATES[label][1]:.4f} s), priced / measured s by stage: "
+                 + ", ".join(f"{key} {value:.4f}/{r['stages'][key]:.4f}"
+                             for key, value in priced.items()) if priced else ""), flush=True)
     return esc
 
 
@@ -2104,8 +2142,11 @@ def dist_phases(a_sp, b_sp, esc_pair, name: str, smi: str) -> dict:
 # ---------------------------------------------------------------------------
 
 LINK_BYTES = 200 << 20  # the directly timed fetch_np download beside the probe
-# The sizes of the downloads (host_copy_rate) and first writes (host_page_rate).
-COPY_POINTS = (64 << 20, 128 << 20)
+# The sizes of the first writes (host_page_rate), and of the float32 tensors
+# whose downloads cast to f64 (host_copy_rate) land in arrays under the mmap
+# threshold.
+PAGE_POINTS = (64 << 20, 128 << 20)
+COPY_POINTS = (4 << 20, 12 << 20)
 # fetch_np's staged download against .cpu().numpy() (phase 20's fetch line):
 # 200 MB in each dtype the routes download, just past a chunk edge, and f32
 # from 4 KiB to 32 MiB (where the pageable copy might win); the 200 MB f32
@@ -2119,9 +2160,11 @@ PICK_MARGIN = 1.15  # a pick is wrong only where the other route is faster by mo
 SLOW_CALL_S = 0.5  # a sweep call slower than this is timed once after its warm call
 # spgemm_host partials/s at rising reuse (partials per output entry), each
 # operand pair: (label, kind, n, nnz or density, seeds).  reuse ~1: two
-# hypersparse_random operands; ~10 and ~100: sp.random at rising density.
+# pairs of hypersparse_random operands, on either side of the sweep's small
+# hypersparse requests; ~10 and ~100: sp.random at rising density.
 # Every output here stays under the mmap threshold (no fresh pages).
 HOST_RATE_POINTS = (
+    ("hyper_40k_reuse1", "hyper", 40_000, 160_000, (131, 132)),
     ("hyper_90k_reuse1", "hyper", 90_000, 360_000, (117, 118)),
     ("random_1000_d0.1_reuse10", "random", 1000, 0.1, (63, 64)),
     ("random_1000_d0.316_reuse100", "random", 1000, 0.316, (65, 66)),
@@ -2139,14 +2182,31 @@ COPY_ENTRY_POINTS = (
 OUT_PAGE_POINTS = (("hyper_100k_reuse1", "hyper", 100_000, 1_000_000, (61, 62)),
                    ("hyper_150k", "hyper", 150_000, 1_500_000, (89, 90)))
 # The fit points of the other host-work rates of the CUDA cost model (none
-# of them a COST_SWEEP request): the products whose packed result to_scipy
-# converts and whose window plan is timed; the full triangles whose indices
-# _fetch_full_triu rebuilds; the f32 panel cast to f64 and the product
-# toarray and np.triu write; the small panels csr_matrix packs; the triples
-# whose (H Q) H^T scipy multiplies.
-CSR_POINTS = OUT_PAGE_POINTS
-# The windowed engine on the card and the uploads: these and a small pair.
-ENGINE_POINTS = CSR_POINTS + (("hyper_30k", "hyper", 30_000, 120_000, (111, 112)),)
+# of them (d) or a COST_SWEEP request): the products the ESC route runs,
+# whose stages fit the window plan, the uploads, the engine and to_scipy,
+# results both past the mmap threshold (OUT_PAGE_POINTS) and under it; the
+# row-chunked products (label, operands, imem_size, Config keywords), whose
+# "download" and "stitch" stages fit the row slice and the stitch's copies:
+# hyper_150k at 18 and 9 chunks, and at 4 of request (d)'s chunk size (the
+# binned budget off, as the classic rung's failure leaves it),
+# hyper_100k_reuse1 at 12, and 800,000^2 with 5.6e6 entries per operand
+# (3.9e7 partials, 10 chunks at the default budget: the row-chunked route at
+# (d)'s scale on other operands); the full triangles
+# whose indices _fetch_full_triu rebuilds; the f32 panel cast to f64 and the
+# product toarray and np.triu write; the small panels csr_matrix packs; the
+# triples whose (H Q) H^T scipy multiplies.
+ESC_POINTS = OUT_PAGE_POINTS + (("hyper_30k", "hyper", 30_000, 120_000, (111, 112)),
+                                ("hyper_40k", "hyper", 40_000, 160_000, (131, 132)))
+# host_slice_rate and stitch_copy_rate are fitted on the products cut at the
+# default ESC budget (imem_size 5), whose parts are the size the router
+# prices at it; the smaller parts of imem_size 1 and 2 slice faster per
+# entry, and check the per-chunk terms.
+FREE_RATE = 1e15  # the rate of a term its fit points show no cost for
+CHUNK_POINTS = (("hyper_150k_imem1", OUT_PAGE_POINTS[1], 1, {}),
+                ("hyper_150k_imem2", OUT_PAGE_POINTS[1], 2, {}),
+                ("hyper_150k_4_chunks", OUT_PAGE_POINTS[1], 5, dict(use_binned_esc=False)),
+                ("hyper_100k_reuse1_imem1", OUT_PAGE_POINTS[0], 1, {}),
+                ("hyper_800k", ("hyper_800k", "hyper", 800_000, 5_600_000, (141, 142)), 5, {}))
 TRIU_POINTS = (4000, 6000)
 F64_PRODUCT = ("random_4096_d0.005", "random", 4096, 0.005, (91, 92))
 DENSE_CSR_POINTS = (("random_2048_d0.02", "random", 2048, 0.02, (93, 94)),
@@ -2155,8 +2215,9 @@ SCIPY_POINTS = (("random_1500_d0.02", "random", 1500, 0.02, (97, 98)),
                 ("random_1200_d0.03", "random", 1200, 0.03, (99, 100)))
 # The crossover sweep: (label, kind, n, nnz or density, seeds, keywords),
 # expansions 8e5 ... 5.6e7 on the sparse branch, two dense-output and three
-# triple requests (H, Q both n^2); the last four are held out (HELD_OUT: the
-# sweep was not looked at when the rates were chosen).  Their device routes
+# triple requests (H, Q both n^2); the last seven are held out (HELD_OUT: the
+# sweep was not looked at when the rates were chosen), request (d), 4.9e7
+# partials on the row-chunked ESC route, the last.  Their device routes
 # launch K1-K4: sparse_random_3000 is extracted by K4,
 # sparse_random_2500_symmetric (~63% of its triangle filled: packed CSR is
 # the smaller download) by K2 after K3 and K1, dense_random_3000_symmetric
@@ -2180,9 +2241,11 @@ COST_SWEEP = (
      dict(use_triple_product=True, compute_full_matrix=1)),
     ("sparse_hyper_70k", "hyper", 70_000, 350_000, (113, 114), dict()),
     ("sparse_random_4000_symmetric", "random", 4000, 0.01, (115, 116), dict(symmetric=True)),
+    ("sparse_chunks_d", "hyper", CHUNKS_N, CHUNKS_NNZ, CHUNKS_SEEDS, dict()),  # request (d)
 )
 HELD_OUT = {"sparse_hyper_120k", "sparse_classic_c", "sparse_random_1800",
-            "triple_random_4000_full", "sparse_hyper_70k", "sparse_random_4000_symmetric"}
+            "triple_random_4000_full", "sparse_hyper_70k", "sparse_random_4000_symmetric",
+            "sparse_chunks_d"}
 HOST_ROUTE = dict(host_compute_limit=1 << 62)  # every request to spgemm_host / scipy
 DEVICE_ROUTE = dict(host_compute_limit=0, **ON_DEVICE)  # as the port's tests force it
 COLD_FLAG = "--cold-cost-model"  # the fresh process of phase 20 (cold_picks)
@@ -2259,7 +2322,8 @@ def host_s(fn, runs: int = PATH_RUNS) -> float:
 def link_phase() -> dict:
     """The calibrated link terms beside directly timed LINK_BYTES transfers,
     and what the probe's terms predict for them (the download by fetch_np
-    with its host copy into fresh pages at the configured rate)."""
+    with its host copy and its result's fresh pages at the configured
+    rates)."""
     t0 = time.perf_counter()
     terms = dict(api._calibrate_link(DEVICE))
     calibrate_s = time.perf_counter() - t0
@@ -2270,7 +2334,8 @@ def link_phase() -> dict:
     del x, h
     cfg = smt.get_config()
     predicted_down = (terms["link_fixed_s"] + LINK_BYTES / terms["link_down_bytes_per_s"]
-                      + LINK_BYTES / cfg.host_copy_rate)
+                      + LINK_BYTES / cfg.host_copy_rate
+                      + api._fresh(LINK_BYTES) / cfg.host_fetch_page_rate)
     predicted_up = terms["link_fixed_s"] + LINK_BYTES / terms["link_up_bytes_per_s"]
     return dict(calibrated=terms, calibrate_s=calibrate_s, bytes=LINK_BYTES,
                 down_s=down_s, down_bytes_per_s=LINK_BYTES / down_s,
@@ -2361,11 +2426,11 @@ def host_rate_fit() -> dict:
 
 
 def host_page_fit() -> dict:
-    """host_page_rate: np.ones of each COPY_POINTS size (a fresh array past
+    """host_page_rate: np.ones of each PAGE_POINTS size (a fresh array past
     the mmap threshold each time, warm, min of PATH_RUNS) net of filling a
     written array of that size (:func:`rate_fit`)."""
     points = {}
-    for nbytes in COPY_POINTS:
+    for nbytes in PAGE_POINTS:
         written = np.ones(nbytes // 8)
         fill_s = host_s(lambda: written.fill(2.0))
         seconds = host_s(lambda: np.ones(nbytes // 8))
@@ -2378,16 +2443,19 @@ def host_page_fit() -> dict:
 def host_copy_fit() -> dict:
     """host_copy_rate: fetch_np of a float32 tensor of each COPY_POINTS size
     cast to f64, as the routes download their values (the staged download
-    into a fresh result whose pages it faults in; warm, min of PATH_RUNS),
-    net of what the link terms just calibrated predict for it; in bytes of
-    the result per second (:func:`rate_fit`).  The same downloads kept f32
-    (an index or panel download) are timed beside them, and a fit of all
-    the points is kept as ``pooled``, with its residuals."""
+    into a result under the mmap threshold, whose pages the warm calls have
+    written; warm, min of PATH_RUNS), net of what the link terms just
+    calibrated predict for it; in bytes of the result per second
+    (:func:`rate_fit`).  The same downloads kept f32 (an index download) are
+    timed beside them, and a fit of all the points is kept as ``pooled``,
+    with its residuals."""
     terms = api._calibrate_link(DEVICE)
     points = {}
     for nbytes in COPY_POINTS:
         x = torch.ones(nbytes // 4, dtype=torch.float32, device=DEVICE)
         for label, dtype, host_bytes in (("f32", None, nbytes), ("f64", np.float64, 2 * nbytes)):
+            require(api._fresh(host_bytes) == 0, f"a COPY_POINTS result of {host_bytes} bytes "
+                    "passes the mmap threshold")
             seconds = wall_s(lambda: fetch_np(x, dtype))
             link_s = terms["link_fixed_s"] + nbytes / terms["link_down_bytes_per_s"]
             points[f"fetch_{nbytes >> 20}_mib_{label}"] = dict(
@@ -2457,39 +2525,157 @@ def fetch_phase(name: str, smi: str) -> dict:
                 f64_by_stage_buffer_s=by_stage, other_card=other)
 
 
-def device_work_fit() -> dict:
-    """The ESC engine on the card and the upload's host work, on
-    ENGINE_POINTS (warm, min of PATH_RUNS, host clock and synchronised):
-    the windowed engine device-resident, fitted as esc_fixed_s plus partials
-    at esc_engine_rate (least squares in relative error); from_scipy of each
-    operand to the card net of what the link terms just calibrated predict
-    (host_upload_rate, :func:`rate_fit`)."""
+def route_stages(a_sp, b_sp, cfg: dict, **kw) -> dict:
+    """sparse_matrix_multiply on its device route under ``cfg`` (DEVICE_ROUTE),
+    warm, then PATH_RUNS calls (host clock, synchronised): each stage's least
+    seconds as the router timed it (api.get_last_route_stages), the least
+    whole call's, the route, its detail and the result's entries."""
+    stages, best = {}, float("inf")
+    with config_set(**cfg), config_set(**DEVICE_ROUTE):
+        for run in range(PATH_RUNS + 1):
+            t0 = time.perf_counter()
+            got = smt.sparse_matrix_multiply(a_sp, b_sp, **kw)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            nnz = got.nnz
+            del got
+            if run:  # the first call warms
+                best = min(best, seconds)
+                for key, value in api.get_last_route_stages().items():
+                    stages[key] = min(stages.get(key, float("inf")), value)
+        route, detail = smt.get_last_route(), api.get_last_route_detail()
+    return dict(stages=stages, seconds=best, route=route, nnz=nnz, **detail)
+
+
+def esc_route_fit(copy_rate: float) -> dict:
+    """The ESC route's rates on the stages the router times, on ESC_POINTS
+    (:func:`route_stages`): the engine as esc_fixed_s plus partials at
+    esc_engine_rate; the uploads net of their link term (api._upload_cost:
+    three synchronous transfers per operand, the bytes) at
+    host_upload_rate; the window plan at esc_plan_rate (:func:`rate_fit`);
+    to_scipy net of its link term and its host copies at ``copy_rate``
+    (api._to_scipy_cost) as entries at host_csr_rate plus its arrays'
+    fresh pages at host_fetch_page_rate (the two least squares in relative
+    error: the results under the mmap threshold set the first, those past
+    it the second; each point's residual).  Where the points show one of
+    the two no cost (in a long process fresh pages can cost nothing
+    measurable), that term is priced free (FREE_RATE) and the other fitted
+    alone."""
     terms = api._calibrate_link(DEVICE)
-    engine, upload = {}, {}
-    for label, kind, n, size, seeds in ENGINE_POINTS:
+    inf = float("inf")
+    net = smt.get_config().replace(host_upload_rate=inf, host_copy_rate=copy_rate,
+                                   host_fetch_page_rate=inf, host_csr_rate=inf)
+    engine, upload, plan, csr = {}, {}, {}, {}
+    for label, kind, n, size, seeds in ESC_POINTS:
         a_sp, b_sp = cost_operands(kind, n, size, seeds)
-        expand = expansion_size(a_sp.indices, a_sp.nnz, b_sp.indptr)
-        w, tail = windowed_plan(a_sp.nnz, np.diff(b_sp.indptr)[a_sp.indices], expand)
-        a = smt.from_scipy(a_sp, dtype=torch.float32, device=DEVICE)
-        b = smt.from_scipy(b_sp, dtype=torch.float32, device=DEVICE)
-        cap = smt.bucket_capacity(expand)
-        engine[label] = dict(partials=expand, seconds=wall_s(lambda: smt.multiply(
-            a, b, out_capacity=cap, expand_capacity=cap, window=w,
-            tail_capacity=smt.bucket_capacity(tail) if tail else 0)))
+        r = route_stages(a_sp, b_sp, {})
+        require(r["route"] == "esc_windowed", f"{label}: route {r['route']!r}")
+        st, val, nnz = r["stages"], api._value_bytes(a_sp, b_sp, DEVICE), r["nnz"]
         entries = a_sp.nnz + b_sp.nnz
-        seconds = wall_s(lambda: (smt.from_scipy(a_sp, dtype=torch.float32, device=DEVICE),
-                                  smt.from_scipy(b_sp, dtype=torch.float32, device=DEVICE)))
-        link_s = 2 * terms["link_fixed_s"] + 8 * entries / terms["link_up_bytes_per_s"]
-        upload[label] = dict(entries=entries, seconds=seconds, link_s=link_s,
-                             rate=entries / max(seconds - link_s, 1e-6))
-        del a, b, a_sp, b_sp
+        engine[label] = dict(partials=expansion_size(a_sp.indices, a_sp.nnz, b_sp.indptr),
+                             seconds=st["engine"])
+        link_s = api._upload_cost(entries, 2, val, terms, net)
+        upload[label] = dict(entries=entries, seconds=st["upload"], link_s=link_s,
+                             rate=entries / max(st["upload"] - link_s, 1e-6))
+        plan[label] = dict(a_entries=a_sp.nnz, seconds=st["windowed_plan"],
+                           rate=a_sp.nnz / st["windowed_plan"])
+        csr[label] = dict(entries=nnz, seconds=st["download"],
+                          fresh_bytes=api._fresh(4 * nnz, 8 * nnz),
+                          link_and_copies_s=api._to_scipy_cost(nnz, val, terms, net))
+        del a_sp, b_sp
+    require(any(p["fresh_bytes"] for p in csr.values())
+            and not all(p["fresh_bytes"] for p in csr.values()),
+            "ESC_POINTS' results must lie both under and past the mmap threshold")
     rows = np.array([[1.0 / p["seconds"], p["partials"] / p["seconds"]] for p in engine.values()])
     fixed, inv = np.linalg.lstsq(rows, np.ones(len(rows)), rcond=None)[0]
     require(fixed > 0 and inv > 0, f"the ESC engine's fit is not positive: {fixed}, {inv}")
     for p in engine.values():
         p["residual"] = (fixed + p["partials"] * inv) / p["seconds"] - 1.0
+    rest = {label: max(p["seconds"] - p["link_and_copies_s"], 1e-6) for label, p in csr.items()}
+    rows = np.array([[p["entries"], p["fresh_bytes"]] for p in csr.values()])
+    rows = rows / np.array([rest[label] for label in csr])[:, None]
+    ones = np.ones(len(rows))
+    coef = np.linalg.lstsq(rows, ones, rcond=None)[0]
+    if coef.min() <= 0:  # a term these points show no cost for is priced free
+        keep = coef > 0
+        coef = np.zeros(2)
+        coef[keep] = np.linalg.lstsq(rows[:, keep], ones, rcond=None)[0]
+    per_entry, per_byte = coef
+    require(per_entry > 0 and per_byte >= 0,
+            f"to_scipy's rest and fresh pages fit: {per_entry}, {per_byte}")
+    pages = {}
+    page_rate = 1.0 / per_byte if per_byte > 0 else FREE_RATE
+    for label, p in csr.items():
+        p["rate"] = p["entries"] / max(rest[label] - p["fresh_bytes"] * per_byte, 1e-6)
+        p["residual"] = (p["entries"] * per_entry + p["fresh_bytes"] * per_byte
+                         + p["link_and_copies_s"]) / p["seconds"] - 1.0
+        if p["fresh_bytes"]:
+            net_s = max(rest[label] - p["entries"] * per_entry, 1e-6)
+            pages[label] = dict(p, rate=p["fresh_bytes"] / net_s)
+    residuals = {label: p["residual"] for label, p in csr.items()}
     return dict(esc_fixed_s=float(fixed), esc_engine_rate=float(1 / inv), engine=engine,
-                host_upload_rate=rate_fit(upload, "rate"))
+                host_upload_rate=rate_fit(upload, "rate"), esc_plan_rate=rate_fit(plan, "rate"),
+                host_csr_rate=dict(points=csr, residuals=residuals, rate=float(1 / per_entry)),
+                host_fetch_page_rate=dict(points=pages, rate=float(page_rate),
+                                          residuals={label: residuals[label] for label in pages}))
+
+
+def chunk_route_fit(fitted: dict) -> dict:
+    """host_slice_rate and stitch_copy_rate on the row-chunked products of
+    CHUNK_POINTS (:func:`route_stages` at each point's imem_size and Config
+    keywords; :func:`rate_fit` each on the points cut at the default
+    budget, every point's residual beside it): the "download" stage net of
+    what the model prices there without the slice under ``fitted`` (each
+    chunk's to_scipy, the parts' fresh pages), and the "stitch" stage net
+    of its two copies' fresh pages, in the result's entries per second (two
+    per entry for the stitch); then each point's device stages priced with
+    the fitted rates beside the measured ones, the priced chunk count beside
+    the route's."""
+    inf = float("inf")
+    slices, stitches, pairs = {}, {}, {}
+    for label, (_, kind, n, size, seeds), imem, cfg in CHUNK_POINTS:
+        a_sp, b_sp = cost_operands(kind, n, size, seeds)
+        r = route_stages(a_sp, b_sp, cfg, imem_size=imem)
+        require(r["route"] == "esc_chunks", f"{label}: route {r['route']!r}")
+        with config_set(**fitted, **cfg, host_slice_rate=inf):
+            free = api._request_stage_costs(a_sp, b_sp, DEVICE, imem_size=imem)
+            limit = api._esc_limit(imem)
+        expand = expansion_size(a_sp.indices, a_sp.nnz, b_sp.indptr)
+        st, nnz = r["stages"], r["nnz"]
+        slices[label] = dict(entries=nnz, chunks=r["chunks"], priced_chunks=-(-expand // limit),
+                             seconds=st["download"], measured=st, call_s=r["seconds"],
+                             rate=nnz / max(st["download"] - free["download"], 1e-6))
+        pages_s = 2 * api._ENTRY_BYTES * nnz / fitted["host_page_rate"]
+        stitches[label] = dict(entries=nnz, seconds=st["stitch"], pages_s=pages_s,
+                               rate=2 * nnz / max(st["stitch"] - pages_s, 1e-6))
+        pairs[label] = a_sp, b_sp, imem, cfg
+    default = [label for label, _, imem, _ in CHUNK_POINTS if imem == 5]
+    require(default, "no CHUNK_POINTS product is cut at the default ESC budget")
+    fits = {key: dict(rate_fit({label: points[label] for label in default}, "rate"),
+                      points=points)
+            for key, points in (("host_slice_rate", slices), ("stitch_copy_rate", stitches))}
+    for f in fits.values():
+        f["residuals"] = {label: p["rate"] / f["rate"] - 1.0 for label, p in f["points"].items()}
+    for label, (a_sp, b_sp, imem, cfg) in pairs.items():
+        p = slices[label]
+        with config_set(**fitted, **cfg, **{key: f["rate"] for key, f in fits.items()}):
+            p["priced"] = api._request_stage_costs(a_sp, b_sp, DEVICE, imem_size=imem)
+        measured = sum(p["measured"][key] for key in p["priced"])
+        p["total_residual"] = sum(p["priced"].values()) / measured - 1.0
+    del pairs
+    return fits
+
+
+def chunk_lines(fit: dict) -> list:
+    """One [chunk-stages] line per CHUNK_POINTS product: its stages priced
+    with the fitted host_slice_rate and stitch_copy_rate beside the measured
+    ones (``fit``: the host_slice_rate fit)."""
+    return [f"[chunk-stages] {label}: {p['chunks']} chunks (priced {p['priced_chunks']}), "
+            f"{p['entries']:.4e} entries, call {p['call_s']:.4f} s; priced / measured s by stage: "
+            + ", ".join(f"{key} {value:.4f}/{p['measured'][key]:.4f}"
+                        for key, value in p["priced"].items())
+            + f"; priced total over measured {p['total_residual']:+.3f}"
+            for label, p in fit["points"].items()]
 
 
 def pooled_line(work: dict) -> str:
@@ -2500,28 +2686,11 @@ def pooled_line(work: dict) -> str:
 
 
 def host_work_fit(sa_sp, sb_sp, page_rate: float) -> dict:
-    """The host-work rates of the CUDA cost model, each on its fit points
-    (host clock, warm, min of PATH_RUNS; :func:`rate_fit`; the f64 passes'
-    net of their arrays' fresh pages at ``page_rate``): to_scipy as the
-    routes run it, of a packed result on the card, net of what the link
-    terms just calibrated predict for its bytes; and dense_pack's on the
-    SIB_N^2 sibling panel (host_pack_rate, as JAX prices the pack)."""
-    down_rate = api._calibrate_link(DEVICE)["link_down_bytes_per_s"]
-    csr, plan = {}, {}
-    for label, kind, n, size, seeds in CSR_POINTS:
-        a_sp, b_sp = cost_operands(kind, n, size, seeds)
-        expand = expansion_size(a_sp.indices, a_sp.nnz, b_sp.indptr)
-        packed = smt.from_scipy(spgemm_host(a_sp, b_sp), dtype=torch.float32, device=DEVICE)
-        nnz = int(packed.nnz)
-        link_s = 8 * nnz / down_rate
-        csr[label] = dict(entries=nnz, seconds=wall_s(lambda: api._to_scipy_f64(packed)),
-                          link_s=link_s)
-        lens = lambda: np.diff(b_sp.indptr)[a_sp.indices]  # noqa: E731
-        plan[label] = dict(a_entries=a_sp.nnz,
-                           seconds=host_s(lambda: windowed_plan(a_sp.nnz, lens(), expand)))
-        csr[label]["rate"] = nnz / max(csr[label]["seconds"] - link_s, 1e-6)
-        plan[label]["rate"] = a_sp.nnz / plan[label]["seconds"]
-        del a_sp, b_sp, packed
+    """The dense routes' host-work rates of the CUDA cost model, each on its
+    fit points (host clock, warm, min of PATH_RUNS; :func:`rate_fit`; the
+    f64 passes' net of their arrays' fresh pages at ``page_rate``); and
+    dense_pack's on the SIB_N^2 sibling panel (host_pack_rate, as JAX
+    prices the pack)."""
     triu = {}
     for m in TRIU_POINTS:
         indptr = np.concatenate([[0], np.cumsum(np.arange(m, 0, -1, dtype=np.int64))])
@@ -2565,8 +2734,7 @@ def host_work_fit(sa_sp, sb_sp, page_rate: float) -> dict:
     pack = {f"sibling_panel_{SIB_N}": dict(elements=pack_panel.size, seconds=pack_s,
                                            rate=pack_panel.size / pack_s)}
     del pack_panel
-    return dict(host_csr_rate=rate_fit(csr, "rate"), esc_plan_rate=rate_fit(plan, "rate"),
-                triu_rebuild_rate=rate_fit(triu, "rate"), host_f64_rate=rate_fit(f64, "rate"),
+    return dict(triu_rebuild_rate=rate_fit(triu, "rate"), host_f64_rate=rate_fit(f64, "rate"),
                 dense_csr_rate=rate_fit(dense_csr, "rate"),
                 scipy_partial_rate=rate_fit(scipy, "rate"), host_pack_rate=rate_fit(pack, "rate"))
 
@@ -2663,6 +2831,8 @@ def crossover_sweep(fitted: dict, cold: dict) -> tuple:
         default_host, default_dev = model_costs(a_sp, b_sp, **kw)
         with config_set(**fitted):
             est_host, est_dev = model_costs(a_sp, b_sp, **kw)
+            priced = {} if set(kw) - {"symmetric"} else api._request_stage_costs(
+                a_sp, b_sp, DEVICE, **kw)
         call = lambda: smt.sparse_matrix_multiply(a_sp, b_sp, **kw)  # noqa: E731
         want = sweep_oracle(a_sp, b_sp, kw)
         times, routes, errs = {}, {}, {}
@@ -2693,7 +2863,7 @@ def crossover_sweep(fitted: dict, cold: dict) -> tuple:
                  default_pick=default_pick,
                  default_pick_right=pick_verdict(default_pick, rounds["host"],
                                                  rounds["device"])["right"],
-                 device_stages=stages,
+                 device_stages=stages, priced_device_stages=priced,
                  host_s=times["host"], device_s=times["device"], model_s=times["model"],
                  host_rounds_s=rounds["host"], device_rounds_s=rounds["device"],
                  host_over_device_rounds=ratios,
@@ -2707,7 +2877,9 @@ def crossover_sweep(fitted: dict, cold: dict) -> tuple:
               f"{r['device_s']:.4f} s (min of {len(ratios)} interleaved rounds, host/device "
               f"each round {[round(x, 3) for x in ratios]}), as the model decides "
               f"({r['model_route']}) "
-              f"{r['model_s']:.4f} s{f' (device route stages {stages})' if stages else ''} | "
+              f"{r['model_s']:.4f} s{f' (device route stages {stages})' if stages else ''}"
+              + (" (priced: " + ", ".join(f"{key} {value:.4f}" for key, value in priced.items())
+                 + ")" if priced else "") + " | "
               f"faster: {faster} by "
               f"x{max(times['host'], times['device']) / min(times['host'], times['device']):.2f}, "
               f"{'right' if r['pick_right'] else 'WRONG'} pick (margin {PICK_MARGIN})"
@@ -2737,18 +2909,22 @@ def cost_model_phase(sa_sp, sb_sp, name: str, smi: str) -> dict:
     both runs' picks, the demo."""
     t0 = time.perf_counter()
     page = host_page_fit()
+    copy = host_copy_fit()
     fit = host_rate_fit()
-    dev = device_work_fit()
+    dev = esc_route_fit(copy["rate"])
     work = dict(host_work_fit(sa_sp, sb_sp, page["rate"]), host_page_rate=page,
-                host_out_page_rate=fit["host_out_page_rate"],
-                host_copy_rate=host_copy_fit(),
-                host_upload_rate=dev["host_upload_rate"])
+                host_out_page_rate=fit["host_out_page_rate"], host_copy_rate=copy,
+                **{key: dev[key] for key in ("host_upload_rate", "esc_plan_rate", "host_csr_rate",
+                                             "host_fetch_page_rate")})
     fitted = dict(host_rate_base=fit["host_rate_base"], host_partial_rate=fit["host_partial_rate"],
                   host_entry_rate=fit["host_entry_rate"],
                   host_copy_entry_rate=fit["host_copy_entry_rate"]["rate"],
                   esc_fixed_s=dev["esc_fixed_s"],
                   esc_engine_rate=dev["esc_engine_rate"],
                   **{key: f["rate"] for key, f in work.items()})
+    work.update(chunk_route_fit(fitted))
+    fitted.update(host_slice_rate=work["host_slice_rate"]["rate"],
+                  stitch_copy_rate=work["stitch_copy_rate"]["rate"])
     cold = cold_run(fitted)
     with config_set(**fitted):
         link = link_phase()
@@ -2773,7 +2949,7 @@ def cost_model_phase(sa_sp, sb_sp, name: str, smi: str) -> dict:
           f"{fit['host_copy_entry_rate']['rate']:.4e} (net of the partials term: "
           + ", ".join(f"{label} {p['rate']:.4e}"
                       for label, p in fit["host_copy_entry_rate"]["points"].items())
-          + f") | windowed engine on the card, min of {PATH_RUNS}: "
+          + f") | the windowed ESC route's engine stage, min of {PATH_RUNS}: "
           + "; ".join(f"{label}: {p['partials']:.4e} partials, {p['seconds']:.4f} s, residual "
                       f"{p['residual']:+.3f}" for label, p in dev["engine"].items())
           + f": esc_fixed_s {dev['esc_fixed_s']:.4e}, esc_engine_rate {dev['esc_engine_rate']:.4e}"
@@ -2784,6 +2960,8 @@ def cost_model_phase(sa_sp, sb_sp, name: str, smi: str) -> dict:
                   for label, res in f["residuals"].items()) + ")"
               for key, f in work.items())
           + " | host_copy_rate of all its points, f32 too: " + pooled_line(work))
+    for line in chunk_lines(work["host_slice_rate"]):
+        print(line, flush=True)
     t1 = time.perf_counter()
     rows, launches = crossover_sweep(fitted, cold)
     wrong = [r["label"] for r in rows if not r["pick_right"]]
@@ -2791,6 +2969,7 @@ def cost_model_phase(sa_sp, sb_sp, name: str, smi: str) -> dict:
     same = all(r["pick"] == r["cold_pick"] for r in rows)
     default_wrong = [r["label"] for r in rows if not r["default_pick_right"]]
     a_row = next(r for r in rows if r["label"] == "sparse_hyper_200k")
+    d_row = next(r for r in rows if r["label"] == "sparse_chunks_d")
     phase("cost-sweep", t1, f"{len(rows)} requests ({len(HELD_OUT)} held out), this run's fit: "
           f"{len(wrong)} wrong picks {wrong} (unsteady: {unsteady}) | same picks cold and warm: "
           f"{'yes' if same else 'no'} | the committed defaults would pick wrong at "
@@ -2799,7 +2978,11 @@ def cost_model_phase(sa_sp, sb_sp, name: str, smi: str) -> dict:
           f"x{link['down_miss']:.2f}, cold x{cold['link']['down_miss']:.2f} | request (a) as the "
           f"model decides ({a_row['model_route']}) {a_row['model_s']:.4f} s, x"
           f"{a_row['model_s'] / min(a_row['host_s'], a_row['device_s']):.3f} the faster forced "
-          f"route | launches over the sweep {launches}")
+          f"route | request (d): est_dev {d_row['est_dev_s']:.4f} s against its device route "
+          f"{d_row['device_s']:.4f} s (x{d_row['est_dev_s'] / d_row['device_s']:.3f}), picked "
+          f"{d_row['pick']} (cold {d_row['cold_pick']}, defaults {d_row['default_pick']}), as the "
+          f"model decides ({d_row['model_route']}) {d_row['model_s']:.4f} s | launches over the "
+          f"sweep {launches}")
     t1 = time.perf_counter()
     demo = demo_on_card()
     phase("demo", t1, f"examples/demo_torch.py --device {DEVICE}: {len(demo)} lines, all [ok]; "

@@ -287,7 +287,8 @@ def _est_result_nnz(expand: int, m: int, n: int) -> int:
 
 
 def _route_costs(expand: int, a_sp, b_sp, device, out_bytes: int | None = None, *,
-                 request: str | None = None, symmetric: bool = False, full: bool = False):
+                 request: str | None = None, symmetric: bool = False, full: bool = False,
+                 esc_limit: int | None = None):
     """(est_host, est_dev) seconds of a scipy-in request.
 
     JAX's cost model (``sparse_matrix_mult_tpu/api.py:557-599``), term for
@@ -302,7 +303,7 @@ def _route_costs(expand: int, a_sp, b_sp, device, out_bytes: int | None = None, 
     """
     link = _link_terms(device)
     if request is not None and torch.device(device).type == "cuda":
-        return _cuda_route_costs(expand, a_sp, b_sp, link, request, symmetric, full)
+        return _cuda_route_costs(expand, a_sp, b_sp, link, request, symmetric, full, esc_limit)
     cfg = get_config()
     m = a_sp.shape[0]
     n = b_sp.shape[1]
@@ -325,6 +326,12 @@ def _route_costs(expand: int, a_sp, b_sp, device, out_bytes: int | None = None, 
 # glibc's largest mmap threshold: a host array past it is mapped afresh, and
 # its first writes fault its pages in (Config.host_page_rate).
 _MMAP_BYTES = 32 << 20
+# The synchronous transfers of one from_scipy (indptr, indices, values up) and
+# of one to_scipy (the same three down): each waits out the link's fixed
+# latency.
+_TRANSFERS = 3
+# The host bytes of one output entry: an int32 index and an f64 value.
+_ENTRY_BYTES = 12
 
 
 def _fresh(*nbytes) -> int:
@@ -341,18 +348,117 @@ def _single_row_entries(a_sp, b_sp) -> int:
     return int(np.diff(b_sp.indptr).take(np.asarray(a_sp.indices).take(starts)).sum())
 
 
+def _upload_cost(entries: float, operands: int, val_bytes: int, link: dict, cfg) -> float:
+    """``from_scipy`` of ``operands`` host matrices of ``entries`` entries in
+    all: three synchronous transfers each, an int32 index and a value of
+    ``val_bytes`` an entry over the link, and the host work per entry
+    (``host_upload_rate``)."""
+    return (_TRANSFERS * operands * link["link_fixed_s"]
+            + (4 + val_bytes) * entries / link["link_up_bytes_per_s"]
+            + entries / cfg.host_upload_rate)
+
+
+def _to_scipy_cost(nnz: float, val_bytes: int, link: dict, cfg,
+                   fresh: float | None = None) -> float:
+    """``to_scipy`` of a packed result of ``nnz`` entries on the card, its
+    values cast to f64 in the download (:func:`_to_scipy_f64`): three
+    synchronous fetches and ``4 + val_bytes`` bytes an entry over the link;
+    ``fetch_np``'s host copies into an int32 and an f64 array (12 bytes an
+    entry) at ``host_copy_rate``; the first writes of those arrays that land
+    in fresh pages, which its copy threads fault in, at
+    ``host_fetch_page_rate`` (``fresh``: their bytes, where the caller
+    knows them better than the mmap threshold does); and the rest,
+    ``csr_matrix`` and the staging ring's fixed work, at ``host_csr_rate``
+    entries/s."""
+    if fresh is None:
+        fresh = _fresh(4 * nnz, 8 * nnz)
+    return (_TRANSFERS * link["link_fixed_s"]
+            + (4 + val_bytes) * nnz / link["link_down_bytes_per_s"]
+            + _ENTRY_BYTES * nnz / cfg.host_copy_rate + fresh / cfg.host_fetch_page_rate
+            + nnz / cfg.host_csr_rate)
+
+
+def _fresh_copy_cost(nnz: float, cfg) -> float:
+    """One copy of ``nnz`` entries of a host CSR into fresh arrays: the copy
+    (``stitch_copy_rate``) and 12 bytes an entry of fresh pages
+    (``host_page_rate``)."""
+    return nnz / cfg.stitch_copy_rate + _ENTRY_BYTES * nnz / cfg.host_page_rate
+
+
+def _stitch_cost(nnz: float, cfg) -> float:
+    """``stitch_csr`` of parts of ``nnz`` entries in all: it concatenates
+    their indices and values, then writes the output, two copies into fresh
+    arrays (both chunked routes)."""
+    return 2 * _fresh_copy_cost(nnz, cfg)
+
+
+def _slice_cost(entries: float, cfg) -> float:
+    """Row slices of A holding ``entries`` entries in all, each uploaded by
+    ``from_scipy``: scipy's slice, and the canonical-format check of the new
+    container, a pass of the same kind (both at ``host_slice_rate``)."""
+    return 2 * entries / cfg.host_slice_rate
+
+
+def _esc_chunk_count(expand: int, esc_limit: int) -> int:
+    """The chunks :func:`_flop_chunk_bounds` cuts ``expand`` partials into
+    at a budget of ``esc_limit``, as the cost model counts them:
+    ``ceil(expand / esc_limit)``, no pass over A (the cut adds at most one
+    while no row of A holds more than a small share of the budget)."""
+    return max(1, -(-int(expand) // max(int(esc_limit), 1)))
+
+
+def _esc_stage_costs(expand: int, a_sp, b_sp, nnz: int, val_bytes: int, link: dict, request: str,
+                     esc_limit: int | None) -> dict:
+    """The device side of an ESC route (``request`` ``"esc"`` or
+    ``"esc_chunks"``) by the stages the router times
+    (:func:`get_last_route_stages`), in seconds; ``nnz``: the result's
+    entries.  The expansion both routes count is not priced, nor the chunked
+    route's ``row_flops`` and chunk bounds.
+
+    ``"esc"``: the window plan (``esc_plan_rate``), both uploads
+    (:func:`_upload_cost`), the engine (``esc_fixed_s``, its launches and
+    its host sync, and partials at ``esc_engine_rate``) and ``to_scipy``
+    (:func:`_to_scipy_cost`).  ``"esc_chunks"``, as
+    :func:`_sparse_out_chunked_esc` runs it: ``ceil(expand / esc_limit)``
+    chunks (``_flop_chunk_bounds`` cuts at that budget); B's upload and the
+    one window plan; each chunk's row slice of A (:func:`_slice_cost`) and
+    its upload; the engine's fixed time per chunk; each chunk's
+    ``to_scipy``, the slice ``[:rows]`` of its rows (``host_slice_rate``) and
+    that part's bytes as fresh pages, since every part is held until the
+    stitch (:func:`_stitch_cost`)."""
+    cfg = get_config()
+    plan = a_sp.nnz / cfg.esc_plan_rate
+    engine = expand / cfg.esc_engine_rate
+    if request == "esc":
+        return dict(windowed_plan=plan,
+                    upload=_upload_cost(a_sp.nnz + b_sp.nnz, 2, val_bytes, link, cfg),
+                    engine=cfg.esc_fixed_s + engine,
+                    download=_to_scipy_cost(nnz, val_bytes, link, cfg))
+    chunks = _esc_chunk_count(expand, esc_limit or cfg.esc_expand_limit)
+    part = nnz / chunks
+    return dict(upload_b=_upload_cost(b_sp.nnz, 1, val_bytes, link, cfg),
+                windowed_plan=plan,
+                chunk_upload=(_slice_cost(a_sp.nnz, cfg)
+                              + _upload_cost(a_sp.nnz, chunks, val_bytes, link, cfg)),
+                engine=chunks * cfg.esc_fixed_s + engine,
+                download=(chunks * _to_scipy_cost(part, val_bytes, link, cfg)
+                          + nnz / cfg.host_slice_rate + _ENTRY_BYTES * nnz / cfg.host_page_rate),
+                stitch=_stitch_cost(nnz, cfg))
+
+
 def _cuda_route_costs(expand: int, a_sp, b_sp, link: dict, request: str, symmetric: bool,
-                      full: bool):
+                      full: bool, esc_limit: int | None = None, stages: bool = False):
     """(est_host, est_dev) of a CUDA request: each side prices the host work
     of the route it would take, at the rates of the config, and the device
     side the link (:func:`_link_terms`) as in JAX and the host work of the
-    upload (``host_upload_rate``).  Of the device's own time only the ESC
+    upload (:func:`_upload_cost`).  Of the device's own time only the ESC
     engine's is priced (``esc_fixed_s``, ``esc_engine_rate``): the dense
     route's kernels take a few ms where its host work takes tens.
 
     ``request``: the device route of a sparse output (``"dense"``,
     ``"esc"``, ``"dense_chunks"``, ``"esc_chunks"``;
-    :func:`_sparse_device_route`), ``"dense_output"`` or ``"triple"``
+    :func:`_sparse_device_route`; ``esc_limit`` its ESC budget, which sets
+    the chunks of ``"esc_chunks"``), ``"dense_output"`` or ``"triple"``
     (``expand`` is then JAX's, twice the expansion of H Q; ``full``:
     ``compute_full_matrix``).  The host side: ``spgemm_host`` at
     ``host_partial_rate`` per partial and ``host_entry_rate`` per output
@@ -363,19 +469,23 @@ def _cuda_route_costs(expand: int, a_sp, b_sp, link: dict, request: str, symmetr
     ``(H Q) H^T`` at ``scipy_partial_rate``; a dense result's f64 passes
     (``toarray``, ``triu``, the mirror) at ``host_f64_rate`` (a symmetric
     output's ``toarray`` touches half its pages).  The device side: the
-    link; each array ``fetch_np`` downloads, its host copy into a fresh
-    array of the result's own dtype (the f64 cast fused into it, its pages
-    faulted in) at ``host_copy_rate`` bytes of that array per second (a
-    result under ``utils.transfer.STAGE_MIN_BYTES`` downloads pageable,
-    within 0.3 ms of that price on an H100 host), but
-    ``to_scipy``'s whole host side, its downloads included, at
-    ``host_csr_rate`` entries/s; and the route's host work: the window plan
-    (``esc_plan_rate``), the chunked routes' stitch (``host_csr_rate``),
-    ``_fetch_full_triu``'s rebuild (``triu_rebuild_rate``), the panel pack
-    (``host_pack_rate``) or a small panel's ``csr_matrix``
-    (``dense_csr_rate``).
-    On both sides every other host array past ``_MMAP_BYTES`` also pays for
-    its fresh pages (``host_page_rate``).
+    link; each array ``fetch_np`` downloads, its host copy into an array of
+    the result's own dtype (the f64 cast fused into it) at
+    ``host_copy_rate`` bytes of that array per second, and that array's
+    fresh pages at ``host_fetch_page_rate`` (a result under
+    ``utils.transfer.STAGE_MIN_BYTES`` downloads pageable, within 0.3 ms of
+    that price on an H100 host);
+    ``to_scipy`` by its parts (:func:`_to_scipy_cost`); the ESC routes by
+    their stages (:func:`_esc_stage_costs`); and the dense routes' host
+    work: ``_fetch_full_triu``'s rebuild (``triu_rebuild_rate``), the panel
+    pack (``host_pack_rate``) or a small panel's ``csr_matrix``
+    (``dense_csr_rate``), and ``"dense_chunks"``'s row slices of A
+    (:func:`_slice_cost`) and uploads of B per chunk, parts held until the stitch
+    (:func:`_stitch_cost`) and, when ``symmetric``, ``csr_triu``'s copy of
+    the triangle.  On both sides every other host array past
+    ``_MMAP_BYTES`` also pays for its fresh pages (``host_page_rate``).
+    With ``stages`` an ESC route's device side comes as its stages
+    (:func:`_esc_stage_costs`) in place of their sum.
     """
     cfg = get_config()
     m, k = a_sp.shape
@@ -388,20 +498,19 @@ def _cuda_route_costs(expand: int, a_sp, b_sp, link: dict, request: str, symmetr
     def download(*arrays):
         # each array: (its bytes on the card, the bytes of the host array it lands in)
         return (sum(d for d, _ in arrays) / link["link_down_bytes_per_s"]
-                + sum(h for _, h in arrays) / cfg.host_copy_rate)
+                + sum(h for _, h in arrays) / cfg.host_copy_rate
+                + _fresh(*(h for _, h in arrays)) / cfg.host_fetch_page_rate)
 
-    uploaded = a_sp.nnz + b_sp.nnz
-    est_dev = (link["link_fixed_s"] + (4 + val_bytes) * uploaded / link["link_up_bytes_per_s"]
-               + uploaded / cfg.host_upload_rate)
+    upload = _upload_cost(a_sp.nnz + b_sp.nnz, 2, val_bytes, link, cfg)
     if request == "triple":
         hq = _est_result_nnz(expand // 2, m, k)  # entries of H Q, each meeting H^T's mean row
         partials = expand // 2 + hq * a_sp.nnz / max(k, 1)
         passes = 4 if full else 2  # toarray and triu, then triu(c, 1).T and the sum
         est_host = (partials / cfg.scipy_partial_rate
                     + passes * (m * m / cfg.host_f64_rate + page(8 * m * m)))
-        return est_host, est_dev + download((val_bytes * m * m, 8 * m * m))
+        return est_host, upload + download((val_bytes * m * m, 8 * m * m))
     slots = m * n
-    nnz = _est_result_nnz(expand, m, n)
+    full_nnz = nnz = _est_result_nnz(expand, m, n)
     copied = _single_row_entries(a_sp, b_sp)
     if symmetric and m == n:
         nnz = nnz * (m + 1) // (2 * m)  # the upper triangle's share
@@ -409,22 +518,26 @@ def _cuda_route_costs(expand: int, a_sp, b_sp, link: dict, request: str, symmetr
     est_host = (expand / cfg.host_partial_rate + copied / cfg.host_copy_entry_rate
                 + max(nnz - copied, 0) / cfg.host_entry_rate
                 + _fresh(4 * nnz, 8 * nnz) / cfg.host_out_page_rate)
-    # to_scipy: indices and values over the link, its host side (their staged
-    # copies, the values cast to f64 in theirs, csr_matrix) per entry
-    csr_cost = (4 + val_bytes) * nnz / link["link_down_bytes_per_s"] + nnz / cfg.host_csr_rate
     if request == "dense_output":
         # toarray writes the output's entries into zeroed pages: a triangle's
         # touch half of them; the device route's download writes every element
         touched = 0.5 if symmetric and m == n else 1.0
         return (est_host + touched * (slots / cfg.host_f64_rate + page(8 * slots)),
-                est_dev + download((val_bytes * slots, 8 * slots)))
+                upload + download((val_bytes * slots, 8 * slots)))
     if request in ("esc", "esc_chunks"):
-        est_dev += (a_sp.nnz / cfg.esc_plan_rate + cfg.esc_fixed_s + expand / cfg.esc_engine_rate
-                    + csr_cost)
-        if request == "esc_chunks":
-            est_dev += nnz / cfg.host_csr_rate  # the stitch
-        return est_host, est_dev
+        costs = _esc_stage_costs(expand, a_sp, b_sp, nnz, val_bytes, link, request, esc_limit)
+        return est_host, costs if stages else sum(costs.values())
+    chunks = 1
+    if request == "dense_chunks":
+        # equal row chunks, each the single-shot dense route on its rows of A
+        # and all of B, of the full product (the triangle is cut after the stitch)
+        chunks = -(-m // max(1, min(m, cfg.dense_path_limit // max(n, 1))))
+        upload = (_upload_cost(a_sp.nnz + chunks * b_sp.nnz, 2 * chunks, val_bytes, link, cfg)
+                  + _slice_cost(a_sp.nnz, cfg))
+        nnz = full_nnz
+    est_dev = upload
     panel_bytes = val_bytes * slots
+    held = request == "dense_chunks"  # every part is held until the stitch
     if request == "dense" and slots <= cfg.host_extract_limit:
         # the panel cast to f64 in the download, then csr_matrix
         est_dev += download((panel_bytes, 8 * slots)) + slots / cfg.dense_csr_rate
@@ -433,12 +546,17 @@ def _cuda_route_costs(expand: int, a_sp, b_sp, link: dict, request: str, symmetr
         # to f64 in the download, then the indices' rebuild
         est_dev += download((val_bytes * nnz, 8 * nnz)) + nnz / cfg.triu_rebuild_rate
     elif panel_bytes < (4 + val_bytes) * fine_capacity(nnz):
-        est_dev += (download((panel_bytes, panel_bytes)) + slots / cfg.host_pack_rate
-                    + page(4 * nnz, 8 * nnz))
+        part = panel_bytes / chunks
+        packed = _ENTRY_BYTES * nnz / cfg.host_page_rate if held else page(4 * nnz, 8 * nnz)
+        est_dev += chunks * download((part, part)) + slots / cfg.host_pack_rate + packed
     else:
-        est_dev += csr_cost
+        part = nnz / chunks
+        est_dev += chunks * _to_scipy_cost(part, val_bytes, link, cfg,
+                                           fresh=_ENTRY_BYTES * part if held else None)
     if request == "dense_chunks":
-        est_dev += nnz / cfg.host_csr_rate  # the stitch
+        est_dev += _stitch_cost(nnz, cfg)
+        if symmetric:
+            est_dev += _fresh_copy_cost(full_nnz * (m + 1) // (2 * m), cfg)  # csr_triu
     return est_host, est_dev
 
 
@@ -465,8 +583,25 @@ def _request_costs(a_sp, b_sp, device, output_format="sparse", symmetric=False,
     if output_format == "dense":
         return _route_costs(expand, a_sp, b_sp, device, out_bytes=val_bytes * m * n,
                             request="dense_output", symmetric=symmetric)
-    route = _sparse_device_route(expand, a_sp, b_sp, _esc_limit(imem_size), device)
-    return _route_costs(expand, a_sp, b_sp, device, request=route, symmetric=symmetric)
+    esc_limit = _esc_limit(imem_size)
+    route = _sparse_device_route(expand, a_sp, b_sp, esc_limit, device)
+    return _route_costs(expand, a_sp, b_sp, device, request=route, symmetric=symmetric,
+                        esc_limit=esc_limit)
+
+
+def _request_stage_costs(a_sp, b_sp, device, symmetric=False, imem_size=None) -> dict:
+    """The device side the router's cost model prices for a sparse-output
+    CUDA request whose device route is an ESC route, by the stages that
+    route times (:func:`_esc_stage_costs`); an empty dict on the other
+    routes."""
+    a_sp, b_sp = _coerce_csr(a_sp), _coerce_csr(b_sp)
+    expand = expansion_size(a_sp.indices, a_sp.nnz, b_sp.indptr)
+    esc_limit = _esc_limit(imem_size)
+    route = _sparse_device_route(expand, a_sp, b_sp, esc_limit, device)
+    if route not in ("esc", "esc_chunks"):
+        return {}
+    return _cuda_route_costs(expand, a_sp, b_sp, _link_terms(device), route, symmetric, False,
+                             esc_limit, stages=True)[1]
 
 
 def _bsr_product_host(a_sp, b_sp, symmetric: bool, device) -> torch.Tensor:
@@ -665,7 +800,8 @@ def _sparse_out_host(a_sp, b_sp, symmetric: bool, esc_limit: int, device):
     # _bsr_route_ok stays behind the model: its occupancy scan runs only
     # when the model already says "host".
     if (expand <= cfg.host_compute_limit and not cfg.force_bsr) or (
-            _host_route_wins(expand, a_sp, b_sp, device, request=route, symmetric=symmetric)
+            _host_route_wins(expand, a_sp, b_sp, device, request=route, symmetric=symmetric,
+                             esc_limit=esc_limit)
             and not (_bsr_route_ok(a_sp, device) and not keep)):
         out = spgemm_host(a_sp, b_sp, symmetric, n_partials=expand, keep_structure=keep)
         _set_route("host")

@@ -62,12 +62,10 @@ class Config:
     # elements/s.  On CUDA each side prices the host work of the route it
     # takes (api._cuda_route_costs) at the rates below.  Every rate is a fit
     # of chip_smoke.py phase 20 on its own fit points, on the host of one
-    # NVIDIA H100 80GB HBM3, 700.00 W (8 CPUs, OMP_NUM_THREADS unset); the
-    # CUDA ones are the geometric mean of two such runs (PERF.md section 5:
-    # host rates vary up to 2.5x between machines); host_copy_rate,
-    # host_csr_rate, host_f64_rate and triu_rebuild_rate were re-fitted when
-    # the downloads became staged (two runs in one chip call each, NVIDIA
-    # H100 80GB HBM3, 700.00 W).
+    # NVIDIA H100 80GB HBM3, 700.00 W (8 CPUs, OMP_NUM_THREADS unset).  The
+    # CUDA ones are the geometric mean of two runs of that phase, each in a
+    # process of its own, in one chip call (each comment gives both runs'
+    # values; host rates vary up to 2.5x between machines, PERF.md).
     # JAX's spgemm_host rate, fitted over reuse ~1, ~10 and ~100 (an earlier
     # run of the same phase);
     host_rate_base: float = 1.572e8
@@ -78,59 +76,87 @@ class Config:
     link_down_bytes_per_s: float = 5.78e10
     # dense_pack of the 12,288^2 float32 panel of the dense route.
     host_pack_rate: float = 6.585e8
-    # CUDA only.  fetch_np's host copy of a download into a fresh array of
-    # the result's dtype (the f64 cast fused into it, its pages faulted in),
-    # bytes of that array/s (staged downloads of 64 and 128 MiB cast to
-    # f64, net of the link; 5.123e9 and 6.445e9 in the two runs; a fit
-    # pooling the same downloads kept f32 gave 5.368e9 and 9.551e9, its
-    # residuals up to +2.2: a kept copy is faster per byte);
-    host_copy_rate: float = 5.746e9
+    # CUDA only.  fetch_np's host copy of a download into an array of the
+    # result's dtype (the f64 cast fused into it) whose pages are already
+    # written, bytes of that array/s (staged downloads of 4 and 12 MiB cast to
+    # f64, results under the mmap threshold, net of the link; 3.935e10 and
+    # 2.495e10, NVIDIA H100 80GB HBM3, 700.00 W); an array past the threshold
+    # adds its fresh pages at host_fetch_page_rate;
+    host_copy_rate: float = 3.133e10
     # the first writes of a host array past glibc's 32 MiB mmap threshold
     # (api._MMAP_BYTES), which lands in fresh pages, bytes/s (np.ones of 64
-    # and 128 MiB net of filling a written array); the rates below are net
-    # of it;
-    host_page_rate: float = 5.25e9
-    # from_scipy's host work per uploaded entry, net of the link;
-    host_upload_rate: float = 3.237e8
-    # the ESC engine on the card (windowed, device-resident): a fixed time
-    # (its launches and its one host sync) and partials at esc_engine_rate;
-    esc_fixed_s: float = 1.455e-3
-    esc_engine_rate: float = 2.556e9
-    # spgemm_host as partials / host_partial_rate + output entries
-    # / host_entry_rate (least squares over three products whose output
-    # stays under the mmap threshold) + the fresh pages of a larger output
-    # at host_out_page_rate (its threads fault them in together: slower
-    # than host_page_rate);
-    host_partial_rate: float = 2.35e9
-    host_entry_rate: float = 1.326e8
+    # and 128 MiB net of filling a written array; 6.010e9 and 6.496e9, NVIDIA
+    # H100 80GB HBM3, 700.00 W); the rates below are net of it;
+    host_page_rate: float = 6.248e9
+    # but the fresh pages of a fetch_np result, which its copy threads fault
+    # in together, bytes/s (fitted with host_csr_rate on the ESC route's
+    # "download" stage, its results past the threshold setting it; 1.159e10
+    # and 1.070e10, NVIDIA H100 80GB HBM3, 700.00 W);
+    host_fetch_page_rate: float = 1.114e10
+    # from_scipy's host work per uploaded entry, net of the link (three
+    # synchronous transfers per operand), as the ESC route's "upload" stage
+    # times it (4.940e8 and 4.574e8, NVIDIA H100 80GB HBM3, 700.00 W);
+    host_upload_rate: float = 4.754e8
+    # the ESC engine on the card (windowed) as the ESC route's "engine" stage
+    # times it: a fixed time (its launches and its one host sync; 1.209e-3 and
+    # 1.034e-3, NVIDIA H100 80GB HBM3, 700.00 W) and partials at
+    # esc_engine_rate (2.526e9 and 2.423e9, NVIDIA H100 80GB HBM3, 700.00 W);
+    esc_fixed_s: float = 1.118e-3
+    esc_engine_rate: float = 2.474e9
+    # spgemm_host as partials / host_partial_rate + output entries /
+    # host_entry_rate (least squares over four products whose output stays
+    # under the mmap threshold: hypersparse at 40,000^2 and 90,000^2,
+    # sp.random at reuse ~10 and ~100; 2.938e9 and 2.426e9, 2.006e8 and
+    # 1.547e8, NVIDIA H100 80GB HBM3, 700.00 W) + the fresh pages of a larger
+    # output at host_out_page_rate (its threads fault them in together: slower
+    # than host_page_rate; 3.863e9 and 3.060e9, NVIDIA H100 80GB HBM3, 700.00
+    # W);
+    host_partial_rate: float = 2.670e9
+    host_entry_rate: float = 1.762e8
     # but the output entries of A's rows of one stored entry, each a copy of
     # one B row, at host_copy_entry_rate (api._single_row_entries; fitted net
-    # of the partials term on chip_smoke.py's COPY_ENTRY_POINTS: one entry
-    # per row of a 20,000 x 30,000 A times a 30,000^2 hypersparse B of 3e6
-    # entries, and of a 30,000 x 10,000 A times 10,000^2 of 5e5; 2.611e8 and
-    # 6.335e8 in the two runs, each in a process of its own, NVIDIA H100 80GB
-    # HBM3, 700.00 W);
-    host_copy_entry_rate: float = 4.067e8
-    host_out_page_rate: float = 2.043e9
-    # to_scipy of a packed result on the card, its whole host side (the
-    # downloads of indices and values, the values cast to f64 in theirs,
-    # csr_matrix) net of the link, entries/s (the ESC routes and the dense
-    # route's CSR download; also the chunked routes' stitch; 5.944e8 and
-    # 1.123e9 in the two runs, whose two points lie up to 3.7x apart);
-    host_csr_rate: float = 8.171e8
-    # windowed_plan (with its gather of B's row lengths), A entries/s;
-    esc_plan_rate: float = 1.012e8
-    # _fetch_full_triu's index rebuild (_full_triu_csr), entries/s
-    # (1.246e9 and 8.487e8 in the two runs);
-    triu_rebuild_rate: float = 1.028e9
-    # an f64 array of m*n elements: the host route's toarray, np.triu and
-    # its mirror, elements/s (6.582e8 and 1.623e9 in the two runs);
-    host_f64_rate: float = 1.034e9
+    # of the partials term on chip_smoke.py's COPY_ENTRY_POINTS: one entry per
+    # row of a 20,000 x 30,000 A times a 30,000^2 hypersparse B of 3e6
+    # entries, and of a 30,000 x 10,000 A times 10,000^2 of 5e5; 7.432e8 and
+    # 5.164e8, NVIDIA H100 80GB HBM3, 700.00 W);
+    host_copy_entry_rate: float = 6.195e8
+    host_out_page_rate: float = 3.438e9
+    # to_scipy of a packed result on the card (api._to_scipy_cost): what is
+    # left of the ESC route's "download" stage net of the link, the host
+    # copies and the fresh pages (csr_matrix, the staging ring's fixed work),
+    # entries/s (1.125e9 and 1.472e9, NVIDIA H100 80GB HBM3, 700.00 W);
+    host_csr_rate: float = 1.287e9
+    # scipy's CSR row slice (get_csr_submatrix), entries/s: each chunk's rows
+    # of A on the chunked routes and each esc_chunks part's [:rows] (fitted on
+    # the "download" stage, net of the rest of it, of the row-chunked products
+    # cut at the default ESC budget, whose parts are the size the router
+    # prices at it: 150,000^2 in 4 chunks and 800,000^2 in 10; 1.198e8 and
+    # 1.145e8, NVIDIA H100 80GB HBM3, 700.00 W);
+    host_slice_rate: float = 1.171e8
+    # one copy of a CSR's entries by numpy or the native library into fresh
+    # arrays, net of their pages (host_page_rate), entries/s: each of
+    # stitch_csr's two (the parts' concatenation, the output) and csr_triu's
+    # (fitted on the "stitch" stage of the same products; 6.180e8 and 5.861e8,
+    # NVIDIA H100 80GB HBM3, 700.00 W);
+    stitch_copy_rate: float = 6.019e8
+    # windowed_plan (with its gather of B's row lengths), A entries/s, as the
+    # ESC route's "windowed_plan" stage times it (1.504e8 and 1.445e8, NVIDIA
+    # H100 80GB HBM3, 700.00 W);
+    esc_plan_rate: float = 1.474e8
+    # _fetch_full_triu's index rebuild (_full_triu_csr), entries/s (9.607e8
+    # and 9.765e8, NVIDIA H100 80GB HBM3, 700.00 W);
+    triu_rebuild_rate: float = 9.686e8
+    # an f64 array of m*n elements: the host route's toarray, np.triu and its
+    # mirror, elements/s (8.327e8 and 7.957e8, NVIDIA H100 80GB HBM3, 700.00
+    # W);
+    host_f64_rate: float = 8.140e8
     # scipy's csr_matrix of a small dense panel (outputs up to
-    # host_extract_limit), elements/s;
-    dense_csr_rate: float = 3.144e7
-    # scipy's serial SpGEMM, partials/s (the triple's host route).
-    scipy_partial_rate: float = 1.641e8
+    # host_extract_limit), elements/s (4.543e7 and 4.219e7, NVIDIA H100 80GB
+    # HBM3, 700.00 W);
+    dense_csr_rate: float = 4.378e7
+    # scipy's serial SpGEMM, partials/s (the triple's host route; 2.309e8 and
+    # 2.369e8, NVIDIA H100 80GB HBM3, 700.00 W).
+    scipy_partial_rate: float = 2.339e8
     # Measure the link of each device at its first routing decision (a
     # one-element round trip, an 8 MiB pinned download and upload) and price
     # that device's requests with it in place of the three link_* fields.

@@ -28,14 +28,17 @@ from sparse_matrix_mult_tpu_torch.utils.testing import hypersparse_random
 
 ORACLE = dict(rtol=1e-5, atol=1e-8)
 # A link of 2 ms fixed cost, 5 GB/s up and 2 GB/s down, and round host rates
-# (fetch_np's host copy at 6 GB/s, fresh pages at 3 GB/s; spgemm_host's
-# entries at 1e8/s, those of A's one-entry rows at 4e8/s).
+# (fetch_np's host copy at 6 GB/s, fresh pages at 3 GB/s, a fetch_np
+# result's at 4 GB/s, a copy of a host CSR's entries at 5e8/s; spgemm_host's
+# entries at 1e8/s, those of A's one-entry rows at 4e8/s; scipy's row slice
+# at 1.2e8 entries/s).
 MODEL = dict(auto_calibrate_link=False, host_rate_base=1e8, link_fixed_s=2e-3,
              link_up_bytes_per_s=5e9, link_down_bytes_per_s=2e9, host_pack_rate=5e8,
              host_partial_rate=3e9, host_entry_rate=1e8, host_copy_entry_rate=4e8,
-             host_csr_rate=2e8, esc_plan_rate=1.5e8,
+             host_csr_rate=2e8, host_slice_rate=1.2e8, esc_plan_rate=1.5e8,
              triu_rebuild_rate=7e7, host_f64_rate=3e8, dense_csr_rate=5e7,
              scipy_partial_rate=1.5e8, host_copy_rate=6e9, host_page_rate=3e9,
+             host_fetch_page_rate=4e9, stitch_copy_rate=5e8,
              host_out_page_rate=1e9, host_upload_rate=4e8,
              esc_fixed_s=2e-3, esc_engine_rate=2e9)
 
@@ -109,23 +112,31 @@ def test_probe_takes_the_least_of_three_warmed_transfers(monkeypatch):
 
 
 def test_download_prices_the_link_the_copy_and_fresh_pages_on_cuda(config):
-    """A CUDA route's download costs the link and the host copy into a fresh
-    array of the result's own dtype (the f64 cast fused into it, the pages
-    faulted in); to_scipy's, the link and its whole host side per entry.
-    The CPU's formula, JAX's, has none of the host terms."""
+    """A CUDA route's download costs the link, the host copy into an array
+    of the result's own dtype (the f64 cast fused into it) and that array's
+    fresh pages; to_scipy's, the link, the copies of its int32 indices and
+    f64 values, their fresh pages and the rest per entry.  The CPU's
+    formula, JAX's, has none of the host terms."""
     a, b = _operands(3000, 3000, 3000, 0.001, 0.001)
     expand = 30_000
+    nnz = api._est_result_nnz(expand, 3000, 3000)
     base = api._route_costs(expand, a, b, "cuda", request="dense_output")
     esc = api._route_costs(expand, a, b, "cuda", request="esc")
     config(host_copy_rate=1e300)
     free = api._route_costs(expand, a, b, "cuda", request="dense_output")
     assert base[0] == free[0]
     assert base[1] - free[1] == pytest.approx(8 * 3000 * 3000 / 6e9, rel=1e-9)
-    assert api._route_costs(expand, a, b, "cuda", request="esc") == esc
+    no_copy = api._route_costs(expand, a, b, "cuda", request="esc")
+    assert no_copy[0] == esc[0]
+    assert esc[1] - no_copy[1] == pytest.approx(12 * nnz / 6e9, rel=1e-9)
     config(host_csr_rate=1e300)
-    nnz = api._est_result_nnz(expand, 3000, 3000)
-    assert esc[1] - api._route_costs(expand, a, b, "cuda", request="esc")[1] == pytest.approx(
+    assert no_copy[1] - api._route_costs(expand, a, b, "cuda", request="esc")[1] == pytest.approx(
         nnz / 2e8, rel=1e-9)
+    config(host_fetch_page_rate=1e300)  # the 72 MB panel lands in fresh pages, the entries do not
+    assert free[1] - api._route_costs(expand, a, b, "cuda", request="dense_output")[1] == (
+        pytest.approx(8 * 3000 * 3000 / 4e9, rel=1e-9))
+    assert api._route_costs(expand, a, b, "cuda", request="esc")[1] == pytest.approx(
+        no_copy[1] - nnz / 2e8, rel=1e-9)
     assert api._route_costs(expand, a, b, "cpu", request="esc") == api._route_costs(expand, a, b,
                                                                                     "cpu")
 
@@ -139,13 +150,42 @@ def _page(*nbytes):
     return sum(b for b in nbytes if b > 32 << 20) / 3e9
 
 
+def _fetch_page(*nbytes):
+    return sum(b for b in nbytes if b > 32 << 20) / 4e9
+
+
 def _down(*arrays):
-    """Each array as (bytes on the card, bytes of the host array it lands in)."""
-    return sum(d for d, _ in arrays) / 2e9 + sum(h for _, h in arrays) / 6e9
+    """Each array as (bytes on the card, bytes of the host array it lands
+    in): the link, the host copy and the host array's fresh pages."""
+    return (sum(d for d, _ in arrays) / 2e9 + sum(h for _, h in arrays) / 6e9
+            + _fetch_page(*(h for _, h in arrays)))
+
+
+def _up(entries, operands, val_bytes):
+    """from_scipy: three transfers per operand, the bytes, the host work."""
+    return 3 * operands * 2e-3 + (4 + val_bytes) * entries / 5e9 + entries / 4e8
 
 
 def _upload(a, b, val_bytes):
-    return 2e-3 + (4 + val_bytes) * (a.nnz + b.nnz) / 5e9 + (a.nnz + b.nnz) / 4e8
+    return _up(a.nnz + b.nnz, 2, val_bytes)
+
+
+def _to_scipy(nnz, val_bytes, fresh=None):
+    """Three fetches, the link, 12 bytes an entry copied, the fresh pages
+    (those past the threshold unless given), csr_matrix's rest."""
+    fresh = _fetch_page(4 * nnz, 8 * nnz) if fresh is None else fresh / 4e9
+    return 3 * 2e-3 + (4 + val_bytes) * nnz / 2e9 + 12 * nnz / 6e9 + fresh + nnz / 2e8
+
+
+def _fresh_copy(nnz):
+    """A copy of a host CSR's entries into fresh arrays: the copy and 12
+    bytes an entry of fresh pages."""
+    return nnz / 5e8 + 12 * nnz / 3e9
+
+
+def _stitch(nnz):
+    """The concatenation and the output: two copies into fresh arrays."""
+    return 2 * _fresh_copy(nnz)
 
 
 def _host_side(expand, nnz, copied=0):
@@ -169,55 +209,189 @@ def _copied(a, b, symmetric=False):
     return total * (m + 1) // (2 * m) if symmetric else total
 
 
-# (request, operands (m, k, n, da, db), symmetric, expansion): each branch of
-# _cuda_route_costs once, and results past the 32 MiB mmap threshold.
+# (request, operands (m, k, n, da, db), symmetric, expansion, ESC budget,
+# Config keywords): each branch of _cuda_route_costs once, results past the
+# 32 MiB mmap threshold, and the chunked routes at one chunk and at several.
 SPARSE_CASES = [
-    ("esc", (3000, 3000, 3000, 0.001, 0.001), False, 30_000),
-    ("esc", (300_000, 3000, 300_000, 1e-4, 1e-4), False, 20_000_000),  # fresh pages
-    ("esc_chunks", (3000, 3000, 3000, 0.001, 0.001), True, 30_000),
-    ("dense", (1500, 1500, 1500, 0.01, 0.01), False, 1_500_000),  # a small panel
-    ("dense", (2500, 2500, 2500, 0.1, 0.1), True, 10**10),  # a full triangle
-    ("dense", (5000, 5000, 5000, 0.1, 0.1), True, 10**11),  # a full triangle, fresh pages
-    ("dense", (2500, 2500, 2500, 0.1, 0.1), False, 10**10),  # the panel downloads
-    ("dense", (2500, 2500, 2500, 0.01, 0.01), False, 6_000_000),  # packed CSR downloads
-    ("dense_chunks", (2500, 2500, 2500, 0.01, 0.01), True, 6_000_000),
+    ("esc", (3000, 3000, 3000, 0.001, 0.001), False, 30_000, None, {}),
+    ("esc", (300_000, 3000, 300_000, 1e-4, 1e-4), False, 20_000_000, None, {}),  # fresh pages
+    ("esc_chunks", (3000, 3000, 3000, 0.001, 0.001), True, 30_000, None, {}),
+    ("esc_chunks", (300_000, 3000, 300_000, 1e-4, 1e-4), False, 20_000_000, 3_000_000,
+     {}),  # 7 chunks, a result past the threshold
+    ("dense", (1500, 1500, 1500, 0.01, 0.01), False, 1_500_000, None, {}),  # a small panel
+    ("dense", (2500, 2500, 2500, 0.1, 0.1), True, 10**10, None, {}),  # a full triangle
+    ("dense", (5000, 5000, 5000, 0.1, 0.1), True, 10**11, None, {}),  # a full triangle, fresh pages
+    ("dense", (2500, 2500, 2500, 0.1, 0.1), False, 10**10, None, {}),  # the panel downloads
+    ("dense", (2500, 2500, 2500, 0.01, 0.01), False, 6_000_000, None, {}),  # packed CSR downloads
+    ("dense_chunks", (2500, 2500, 2500, 0.01, 0.01), True, 6_000_000, None, {}),
+    ("dense_chunks", (2500, 2500, 2500, 0.002, 0.002), False, 1_000_000, None,
+     dict(dense_path_limit=1_000_000)),  # 7 chunks of 400 rows, packed CSR downloads
 ]
 
 
-@pytest.mark.parametrize("request_kind,shape,symmetric,expand", SPARSE_CASES,
+def _esc_device_side(request, a, b, nnz, expand, val, limit):
+    """The ESC routes' device side, stage by stage as the router runs them."""
+    plan = a.nnz / 1.5e8
+    if request == "esc":
+        return _upload(a, b, val) + plan + 2e-3 + expand / 2e9 + _to_scipy(nnz, val)
+    chunks = math.ceil(expand / (limit or tsmm.get_config().esc_expand_limit))
+    part = nnz / chunks
+    return (_up(b.nnz, 1, val) + plan
+            + 2 * a.nnz / 1.2e8 + _up(a.nnz, chunks, val)  # A's slices, their checks, uploads
+            + chunks * 2e-3 + expand / 2e9
+            + chunks * _to_scipy(part, val) + nnz / 1.2e8 + 12 * nnz / 3e9  # slices, held parts
+            + _stitch(nnz))
+
+
+@pytest.mark.parametrize("request_kind,shape,symmetric,expand,limit,cfg", SPARSE_CASES,
                          ids=[f"{c[0]}_{i}" for i, c in enumerate(SPARSE_CASES)])
-def test_cuda_sparse_costs_are_the_formula(config, request_kind, shape, symmetric, expand):
+def test_cuda_sparse_costs_are_the_formula(config, request_kind, shape, symmetric, expand, limit,
+                                           cfg):
+    config(**cfg)
     a, b = _operands(*shape)
     m, n = a.shape[0], b.shape[1]
     val = api._value_bytes(a, b, "cuda")
-    nnz = api._est_result_nnz(expand, m, n)
+    full = nnz = api._est_result_nnz(expand, m, n)
     if symmetric:
         nnz = nnz * (m + 1) // (2 * m)
     est_host, est_dev = api._route_costs(expand, a, b, "cuda", request=request_kind,
-                                         symmetric=symmetric)
+                                         symmetric=symmetric, esc_limit=limit)
     assert est_host == pytest.approx(_host_side(expand, nnz, _copied(a, b, symmetric)),
                                      rel=1e-12)
-    csr = (4 + val) * nnz / 2e9 + nnz / 2e8
     if request_kind.startswith("esc"):
-        want = (a.nnz / 1.5e8 + 2e-3 + expand / 2e9 + csr
-                + (nnz / 2e8 if request_kind == "esc_chunks" else 0.0))
-    elif m * n <= tsmm.get_config().host_extract_limit:
+        want = _esc_device_side(request_kind, a, b, nnz, expand, val, limit)
+        assert est_dev == pytest.approx(want, rel=1e-12)
+        return
+    chunks, upload = 1, _upload(a, b, val)
+    if request_kind == "dense_chunks":  # row chunks of the full product, B uploaded by each
+        chunks = math.ceil(m / min(m, tsmm.get_config().dense_path_limit // n))
+        upload = _up(a.nnz + chunks * b.nnz, 2 * chunks, val) + 2 * a.nnz / 1.2e8
+        nnz = full
+    held = request_kind == "dense_chunks"
+    if m * n <= tsmm.get_config().host_extract_limit:
         want = _down((val * m * n, 8 * m * n)) + m * n / 5e7
     elif symmetric and request_kind == "dense" and m * n * math.exp(-expand / (m * n)) < 1:
         want = _down((val * nnz, 8 * nnz)) + nnz / 7e7
     elif val * m * n < (4 + val) * fine_capacity(nnz):
-        want = _down((val * m * n, val * m * n)) + m * n / 5e8 + _page(4 * nnz, 8 * nnz)
+        part = val * m * n / chunks
+        want = (chunks * _down((part, part)) + m * n / 5e8
+                + (12 * nnz / 3e9 if held else _page(4 * nnz, 8 * nnz)))
     else:
-        want = csr
-    if request_kind == "dense_chunks":
-        want += nnz / 2e8
-    assert est_dev == pytest.approx(_upload(a, b, val) + want, rel=1e-12)
+        part = nnz / chunks
+        want = chunks * _to_scipy(part, val, fresh=12 * part if held else None)
+    if held:
+        want += _stitch(nnz)
+        if symmetric:
+            want += _fresh_copy(full * (m + 1) // (2 * m))  # csr_triu
+    assert est_dev == pytest.approx(upload + want, rel=1e-12)
 
 
 def test_fresh_pages_past_the_mmap_threshold():
     assert api._MMAP_BYTES == 32 << 20
     assert api._fresh(32 << 20, (32 << 20) + 1, 10) == (32 << 20) + 1
     assert api._fresh() == 0
+
+
+def _skewed(m, k, seed):
+    """(m, k) CSR whose row lengths follow a heavy tail (1 to 200 entries)."""
+    rng = np.random.default_rng(seed)
+    return _rows_of(np.minimum(rng.zipf(1.6, m), 200), k, seed)
+
+
+@pytest.mark.parametrize("rows", ["uniform", "skewed"])
+@pytest.mark.parametrize("budget", [0.07, 0.13, 0.31])
+def test_priced_chunk_count_is_the_cut(rows, budget):
+    """ceil(expand / budget), the chunks the cost model prices, is within one
+    of the chunks _flop_chunk_bounds cuts, on uniform and heavy-tailed rows
+    of A (each row far under the budget)."""
+    if rows == "uniform":
+        a, b = hypersparse_random(6000, 5000, 30_000, 3), hypersparse_random(5000, 5000, 60_000, 4)
+    else:
+        a, b = _skewed(3000, 5000, 5), hypersparse_random(5000, 5000, 60_000, 6)
+    flops = api.row_flops(a.indptr, a.indices, b.indptr)
+    expand = int(flops.sum())
+    limit = int(budget * expand)
+    assert flops.max() < 0.1 * limit
+    cut = len(api._flop_chunk_bounds(flops, limit, a.shape[0])) - 1
+    priced = api._esc_chunk_count(expand, limit)
+    assert cut > 2 and abs(priced - cut) <= 1
+
+
+def test_stitch_prices_both_copies_and_their_fresh_pages(config, monkeypatch):
+    """stitch_csr's price is two copies of the entries, each into fresh
+    pages (12 bytes an entry), at any size; both chunked routes price their
+    stitch with it, on every entry of the parts they stitch."""
+    nnz = 1_000
+    assert api._stitch_cost(nnz, tsmm.get_config()) == pytest.approx(
+        2 * nnz / 5e8 + 2 * 12 * nnz / 3e9, rel=1e-12)
+    config(stitch_copy_rate=1e300)
+    assert api._stitch_cost(nnz, tsmm.get_config()) == pytest.approx(2 * 12 * nnz / 3e9, rel=1e-12)
+    config(stitch_copy_rate=5e8, host_page_rate=1e300)
+    assert api._stitch_cost(nnz, tsmm.get_config()) == pytest.approx(2 * nnz / 5e8, rel=1e-12)
+    config(host_page_rate=3e9)
+    stitched = []
+    real = api._stitch_cost
+    monkeypatch.setattr(api, "_stitch_cost", lambda n, cfg: stitched.append(n) or real(n, cfg))
+    a, b = _operands(2500, 2500, 2500, 0.002, 0.002)
+    full = api._est_result_nnz(1_000_000, 2500, 2500)
+    for request in ("esc_chunks", "dense_chunks", "esc", "dense"):
+        api._route_costs(1_000_000, a, b, "cuda", request=request, symmetric=True,
+                         esc_limit=300_000)
+    # esc_chunks stitches the triangle's parts; dense_chunks the full product's, then cuts it
+    assert stitched == [full * 2501 // 5000, full]
+
+
+def test_stage_costs_sum_to_the_device_side(config):
+    """_request_stage_costs gives an ESC route's device side by the stages
+    the router times, summing to the model's est_dev; no stages on the
+    other routes."""
+    a, b = _hyper(20_000, 60_000)
+    for kw, stages in ((dict(), {"windowed_plan", "upload", "engine", "download"}),
+                       (dict(imem_size=1), {"upload_b", "windowed_plan", "chunk_upload", "engine",
+                                            "download", "stitch"})):
+        if kw:
+            expand = int(api.expansion_size(a.indices, a.nnz, b.indptr))
+            config(use_binned_esc=False, dense_path_limit=1000, esc_expand_limit=expand // 2)
+        priced = api._request_stage_costs(a, b, "cuda", **kw)
+        assert set(priced) == stages
+        assert sum(priced.values()) == pytest.approx(api._request_costs(a, b, "cuda", **kw)[1],
+                                                     rel=1e-12)
+    config(esc_expand_limit=1 << 22, dense_path_limit=1 << 28)
+    assert api._request_stage_costs(*_operands(400, 400, 400, 0.05, 0.05), "cuda") == {}
+
+
+# The ESC route's link and engine made free, so that only the host work of the
+# chunks' downloads and of the stitch is left on the device side.
+FREE_LINK_AND_ENGINE = dict(link_fixed_s=1e-12, link_up_bytes_per_s=1e300,
+                            link_down_bytes_per_s=1e300, host_upload_rate=1e300,
+                            esc_plan_rate=1e300, esc_fixed_s=1e-12, esc_engine_rate=1e300)
+FREE_DOWNLOADS = dict(host_copy_rate=1e300, host_page_rate=1e300, host_fetch_page_rate=1e300,
+                      host_csr_rate=1e300, host_slice_rate=1e300, stitch_copy_rate=1e300)
+
+
+@pytest.mark.parametrize("side", ["host", "device"])
+def test_chunked_request_follows_its_stitch_and_downloads(config, on_cuda, side):
+    """A request on the flop-balanced chunks: priced at MODEL's rates for its
+    chunks' downloads and its stitch, spgemm_host wins; with those free, the
+    device route does.  Either way scipy's answer."""
+    a, b = _hyper()
+    expand = int(api.expansion_size(a.indices, a.nnz, b.indptr))
+    config(host_compute_limit=0, use_binned_esc=False, dense_path_limit=1000,
+           esc_expand_limit=expand // 4, **FREE_LINK_AND_ENGINE,
+           **(FREE_DOWNLOADS if side == "device" else {}))
+    assert api._sparse_device_route(expand, a, b, api._esc_limit(None), "cuda") == "esc_chunks"
+    est_host, est_dev = api._request_costs(a, b, "cuda")
+    assert (est_host < est_dev) == (side == "host")
+    got = tsmm.sparse_matrix_multiply(a, b, device="cuda")
+    assert tsmm.get_last_route() == ("host" if side == "host" else "esc_chunks")
+    if side == "device":
+        assert abs(api.get_last_route_detail()["chunks"]
+                   - api._esc_chunk_count(expand, api._esc_limit(None))) <= 1
+    ref = (a @ b).tocsr()
+    ref.sort_indices()
+    np.testing.assert_array_equal(got.indptr, ref.indptr)
+    np.testing.assert_array_equal(got.indices, ref.indices)
+    np.testing.assert_allclose(got.data, ref.data, **ORACLE)
 
 
 @pytest.mark.parametrize("full", [0, 1])
@@ -376,7 +550,8 @@ def test_request_costs_name_the_route_the_router_takes(config, on_cuda, monkeypa
         return real(*args, **kw)
 
     monkeypatch.setattr(api, "_route_costs", spy)
-    config(host_compute_limit=0, host_partial_rate=1.0)  # every request stays on the device
+    # every request stays on the device
+    config(host_compute_limit=0, host_partial_rate=1.0, scipy_partial_rate=1.0)
     hyper = _hyper()
     for (a, b), kw, route in ((_operands(400, 400, 400, 0.05, 0.05), {}, "dense"),
                               (hyper, {}, "esc_windowed"),
