@@ -24,6 +24,7 @@ The scipy-in/scipy-out entry point computes on ``device`` (default
 
 from __future__ import annotations
 
+import contextlib
 import threading
 import time
 
@@ -44,6 +45,7 @@ from .ops.triple_product import triple_product_dense
 from .types import CSRMatrix, bucket_capacity, from_scipy, to_scipy
 from .types_bsr import _tobsr_padded, bsr_from_scipy
 from .utils.native import csr_triu, expansion_size, row_flops, spgemm_host, stitch_csr
+from .utils.profiling import span
 from .utils.transfer import fetch_dense_to_csr, fetch_np, fine_capacity
 
 __all__ = ["sparse_matrix_multiply", "multiply", "triple_product", "get_last_route",
@@ -87,24 +89,27 @@ def _set_route(route: str, **detail) -> None:
 
 
 class _StageClock:
-    """Host seconds of each stage of one routed call; a stage marked more
-    than once (per chunk) sums.  On CUDA each mark first waits for the
-    device, so a stage holds the device work it queued.  The download that
-    ends every ESC route waits for that work in any case, so the marks only
-    move the wait, at a few microseconds each."""
+    """Host seconds of each stage of one routed call, each stage a ``with
+    clock.stage(name)`` block, which a profiler sees as the span
+    ``smm.route.<name>``; a stage run more than once (per chunk) sums.  On
+    CUDA each stage waits for the device before it ends, so a stage holds
+    the device work it queued.  The download that ends every ESC route waits
+    for that work in any case, so the stages only move the wait, at a few
+    microseconds each."""
 
     def __init__(self, device):
         device = torch.device(device)
         self._cuda = device if device.type == "cuda" else None
         self.seconds = {}
-        self._last = time.perf_counter()
 
-    def mark(self, stage: str) -> None:
-        if self._cuda is not None:
-            torch.cuda.synchronize(self._cuda)
-        now = time.perf_counter()
-        self.seconds[stage] = self.seconds.get(stage, 0.0) + now - self._last
-        self._last = now
+    @contextlib.contextmanager
+    def stage(self, name: str):
+        start = time.perf_counter()
+        with span("smm.route." + name):
+            yield
+            if self._cuda is not None:
+                torch.cuda.synchronize(self._cuda)
+        self.seconds[name] = self.seconds.get(name, 0.0) + time.perf_counter() - start
 
     def finish(self, route: str, **detail) -> None:
         _set_route(route, **detail)
@@ -793,8 +798,8 @@ def _sparse_out_host(a_sp, b_sp, symmetric: bool, esc_limit: int, device):
     n = b_sp.shape[1]
     cfg = get_config()
     clock = _StageClock(device)
-    expand = expansion_size(a_sp.indices, a_sp.nnz, b_sp.indptr)
-    clock.mark("expansion_size")
+    with clock.stage("expansion_size"):
+        expand = expansion_size(a_sp.indices, a_sp.nnz, b_sp.indptr)
     keep = cfg.keep_structure
     route = _sparse_device_route(expand, a_sp, b_sp, esc_limit, device)
     # _bsr_route_ok stays behind the model: its occupancy scan runs only
@@ -815,36 +820,36 @@ def _sparse_out_host(a_sp, b_sp, symmetric: bool, esc_limit: int, device):
         out_cap = bucket_capacity(min(expand, m * n))
         plan = wplan = None
         if binned and expand <= binned_budget:
-            plan = _binned_plan_for(a_sp, b_sp, expand)
-            clock.mark("binned_plan")
+            with clock.stage("binned_plan"):
+                plan = _binned_plan_for(a_sp, b_sp, expand)
         if plan is None:
             if binned and expand > esc_limit:  # past the ESC budget only the binned rung runs
                 return _sparse_out_chunked_esc(a_sp, b_sp, symmetric, esc_limit, device, clock)
-            wplan = windowed_plan(a_sp.nnz, np.diff(b_sp.indptr)[a_sp.indices], expand)
-            clock.mark("windowed_plan")
+            with clock.stage("windowed_plan"):
+                wplan = windowed_plan(a_sp.nnz, np.diff(b_sp.indptr)[a_sp.indices], expand)
             if wplan is None and expand > esc_limit:  # the classic engine keeps the ESC budget
                 return _sparse_out_chunked_esc(a_sp, b_sp, symmetric, esc_limit, device, clock)
-        a = from_scipy(a_sp, dtype=dtype, device=device)
-        b = from_scipy(b_sp, dtype=dtype, device=device)
-        args = plan.device_args(device) if plan is not None else None
-        clock.mark("upload")
-        if plan is not None:
-            c = spgemm_esc_binned(a, b, *args, window=plan.window, out_capacity=out_cap,
-                                  symmetric=symmetric, dedup_span=plan.max_run)
-            route = "esc_binned"
-        elif wplan is not None:
-            w, tail = wplan
-            c = spgemm_esc_windowed(a, b, window=w, expand_capacity=bucket_capacity(expand),
-                                    tail_capacity=bucket_capacity(tail) if tail else 0,
-                                    out_capacity=out_cap, symmetric=symmetric)
-            route = "esc_windowed"
-        else:
-            c = spgemm_esc(a, b, expand_capacity=bucket_capacity(expand),
-                           out_capacity=out_cap, symmetric=symmetric)
-            route = "esc"
-        clock.mark("engine")
-        out = _to_scipy_f64(c)
-        clock.mark("download")
+        with clock.stage("upload"):
+            a = from_scipy(a_sp, dtype=dtype, device=device)
+            b = from_scipy(b_sp, dtype=dtype, device=device)
+            args = plan.device_args(device) if plan is not None else None
+        with clock.stage("engine"):
+            if plan is not None:
+                c = spgemm_esc_binned(a, b, *args, window=plan.window, out_capacity=out_cap,
+                                      symmetric=symmetric, dedup_span=plan.max_run)
+                route = "esc_binned"
+            elif wplan is not None:
+                w, tail = wplan
+                c = spgemm_esc_windowed(a, b, window=w, expand_capacity=bucket_capacity(expand),
+                                        tail_capacity=bucket_capacity(tail) if tail else 0,
+                                        out_capacity=out_cap, symmetric=symmetric)
+                route = "esc_windowed"
+            else:
+                c = spgemm_esc(a, b, expand_capacity=bucket_capacity(expand),
+                               out_capacity=out_cap, symmetric=symmetric)
+                route = "esc"
+        with clock.stage("download"):
+            out = _to_scipy_f64(c)
         clock.finish(route)
         return out
     if route == "dense_chunks":
@@ -890,37 +895,37 @@ def _sparse_out_chunked_esc(a_sp, b_sp, symmetric: bool, esc_limit, device, cloc
     is never larger than the whole's."""
     m = a_sp.shape[0]
     n = b_sp.shape[1]
-    flops = row_flops(a_sp.indptr, a_sp.indices, b_sp.indptr)
-    clock.mark("row_flops")
-    bounds = _flop_chunk_bounds(flops, esc_limit or get_config().esc_expand_limit, m)
-    clock.mark("chunk_bounds")
+    with clock.stage("row_flops"):
+        flops = row_flops(a_sp.indptr, a_sp.indices, b_sp.indptr)
+    with clock.stage("chunk_bounds"):
+        bounds = _flop_chunk_bounds(flops, esc_limit or get_config().esc_expand_limit, m)
     dtype, _ = _upload_dtype(a_sp, b_sp, device)
-    b = from_scipy(b_sp, dtype=dtype, device=device)
-    clock.mark("upload_b")
+    with clock.stage("upload_b"):
+        b = from_scipy(b_sp, dtype=dtype, device=device)
     csum = np.concatenate([[0], np.cumsum(flops, dtype=np.int64)])
-    plan = windowed_plan(a_sp.nnz, np.diff(b_sp.indptr)[a_sp.indices], int(csum[-1]))
-    clock.mark("windowed_plan")
+    with clock.stage("windowed_plan"):
+        plan = windowed_plan(a_sp.nnz, np.diff(b_sp.indptr)[a_sp.indices], int(csum[-1]))
     parts = []
     for start, stop in zip(bounds[:-1], bounds[1:]):
         rows_c = stop - start
         rows_pad = min(bucket_capacity(rows_c, minimum=1), bucket_capacity(m, minimum=1))
         expand = int(csum[stop] - csum[start])
-        a_chunk = _chunk_rows_padded(a_sp, start, stop, rows_pad, dtype, device)
-        clock.mark("chunk_upload")
+        with clock.stage("chunk_upload"):
+            a_chunk = _chunk_rows_padded(a_sp, start, stop, rows_pad, dtype, device)
         kw = dict(expand_capacity=bucket_capacity(max(expand, 1)),
                   out_capacity=bucket_capacity(max(min(expand, rows_pad * n), 1)),
                   symmetric=symmetric, row_offset=start)
-        if plan is not None:
-            c = spgemm_esc_windowed(a_chunk, b, window=plan[0],
-                                    tail_capacity=bucket_capacity(plan[1]) if plan[1] else 0,
-                                    **kw)
-        else:
-            c = spgemm_esc(a_chunk, b, **kw)
-        clock.mark("engine")
-        parts.append(_to_scipy_f64(c)[:rows_c])
-        clock.mark("download")
-    out = stitch_csr(parts, m, n)
-    clock.mark("stitch")
+        with clock.stage("engine"):
+            if plan is not None:
+                c = spgemm_esc_windowed(a_chunk, b, window=plan[0],
+                                        tail_capacity=bucket_capacity(plan[1]) if plan[1] else 0,
+                                        **kw)
+            else:
+                c = spgemm_esc(a_chunk, b, **kw)
+        with clock.stage("download"):
+            parts.append(_to_scipy_f64(c)[:rows_c])
+    with clock.stage("stitch"):
+        out = stitch_csr(parts, m, n)
     clock.finish("esc_chunks", chunks=len(bounds) - 1)
     return out
 
@@ -1107,34 +1112,36 @@ def multiply(
     raise ``ValueError`` on an undersized capacity instead of dropping
     partials; otherwise the dense route and extraction.
     """
-    if output_format == "dense":
-        return spgemm_dense_out(a, b, symmetric=symmetric, precision=precision)
-    if output_format == "sparse":
-        if out_capacity is None:
-            raise ValueError("sparse output requires out_capacity")
-        if plan is not None:
-            return spgemm_esc_binned(a, b, *plan.device_args(a.device), window=plan.window,
-                                     out_capacity=out_capacity, symmetric=symmetric,
-                                     dedup_span=plan.max_run)
-        if expand_capacity is None and (window is not None or b_table is not None
-                                        or tail_capacity):
-            raise ValueError(
-                "window/tail_capacity/b_table require expand_capacity: without it the call would "
-                "fall through to the dense route (different semantics)"
-            )
-        if expand_capacity is not None:
-            if window is not None:
-                return spgemm_esc_windowed(a, b, window=window, expand_capacity=expand_capacity,
-                                           tail_capacity=tail_capacity,
-                                           out_capacity=out_capacity, symmetric=symmetric,
-                                           b_table=b_table)
-            return spgemm_esc(a, b, expand_capacity=expand_capacity, out_capacity=out_capacity,
-                              symmetric=symmetric)
-        c = spgemm_dense_out(a, b, symmetric=symmetric, precision=precision)
-        return _extract_csr(c, out_capacity, symmetric=symmetric)
-    raise ValueError("Invalid output_format. Choose 'sparse' or 'dense'.")
+    with span("smm.multiply"):
+        if output_format == "dense":
+            return spgemm_dense_out(a, b, symmetric=symmetric, precision=precision)
+        if output_format == "sparse":
+            if out_capacity is None:
+                raise ValueError("sparse output requires out_capacity")
+            if plan is not None:
+                return spgemm_esc_binned(a, b, *plan.device_args(a.device), window=plan.window,
+                                         out_capacity=out_capacity, symmetric=symmetric,
+                                         dedup_span=plan.max_run)
+            if expand_capacity is None and (window is not None or b_table is not None
+                                            or tail_capacity):
+                raise ValueError(
+                    "window/tail_capacity/b_table require expand_capacity: without it the call "
+                    "would fall through to the dense route (different semantics)"
+                )
+            if expand_capacity is not None:
+                if window is not None:
+                    return spgemm_esc_windowed(a, b, window=window, expand_capacity=expand_capacity,
+                                               tail_capacity=tail_capacity,
+                                               out_capacity=out_capacity, symmetric=symmetric,
+                                               b_table=b_table)
+                return spgemm_esc(a, b, expand_capacity=expand_capacity, out_capacity=out_capacity,
+                                  symmetric=symmetric)
+            c = spgemm_dense_out(a, b, symmetric=symmetric, precision=precision)
+            return _extract_csr(c, out_capacity, symmetric=symmetric)
+        raise ValueError("Invalid output_format. Choose 'sparse' or 'dense'.")
 
 
 def triple_product(h: CSRMatrix, q: CSRMatrix, compute_full_matrix: int = 0, precision=None):
     """Device-resident fused ``H . Q . H^T`` (see :mod:`.ops.triple_product`)."""
-    return triple_product_dense(h, q, compute_full_matrix, precision=precision)
+    with span("smm.triple_product"):
+        return triple_product_dense(h, q, compute_full_matrix, precision=precision)

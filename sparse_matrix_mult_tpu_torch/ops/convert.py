@@ -12,6 +12,7 @@ from __future__ import annotations
 import torch
 
 from ..types import CSRMatrix
+from ..utils.profiling import span
 from .kernels import convert_kernels
 
 __all__ = ["csr_to_dense", "dense_to_csr", "dense_to_csr_triu", "csr_row_ids"]
@@ -30,17 +31,19 @@ def csr_row_ids(a: CSRMatrix) -> torch.Tensor:
 def csr_to_dense(a: CSRMatrix, dtype=None) -> torch.Tensor:
     """Dense (rows, cols) matrix; entries must be sorted by (row, col) with no
     duplicates -- true for every container this package builds."""
-    values = a.values if dtype is None else a.values.to(dtype)
-    return convert_kernels.csr_to_dense(a.indptr, a.indices, values, a.shape)
+    with span("smm.densify"):
+        values = a.values if dtype is None else a.values.to(dtype)
+        return convert_kernels.csr_to_dense(a.indptr, a.indices, values, a.shape)
 
 
 def dense_to_csr(c: torch.Tensor, capacity: int, dtype=None) -> CSRMatrix:
     """Padded CSR of the nonzeros of ``c``; entries past ``capacity`` are
     dropped (callers size the capacity from the structure)."""
-    if dtype is not None:
-        c = c.to(dtype)
-    indptr, indices, values = convert_kernels.dense_to_csr(c.contiguous(), capacity)
-    return CSRMatrix(indptr=indptr, indices=indices, values=values, shape=tuple(c.shape))
+    with span("smm.extract"):
+        if dtype is not None:
+            c = c.to(dtype)
+        indptr, indices, values = convert_kernels.dense_to_csr(c.contiguous(), capacity)
+        return CSRMatrix(indptr=indptr, indices=indices, values=values, shape=tuple(c.shape))
 
 
 def dense_to_csr_triu(c: torch.Tensor, capacity: int, dtype=None) -> CSRMatrix:
@@ -49,7 +52,9 @@ def dense_to_csr_triu(c: torch.Tensor, capacity: int, dtype=None) -> CSRMatrix:
     non-square matrix takes the full extraction, as in the JAX package."""
     if c.shape[0] != c.shape[1]:
         return dense_to_csr(c, capacity, dtype)
-    if dtype is not None:
-        c = c.to(dtype)
-    indptr, indices, values = convert_kernels.dense_to_csr(c.contiguous(), capacity, triu=True)
-    return CSRMatrix(indptr=indptr, indices=indices, values=values, shape=tuple(c.shape))
+    with span("smm.extract"):
+        if dtype is not None:
+            c = c.to(dtype)
+        indptr, indices, values = convert_kernels.dense_to_csr(c.contiguous(), capacity,
+                                                               triu=True)
+        return CSRMatrix(indptr=indptr, indices=indices, values=values, shape=tuple(c.shape))

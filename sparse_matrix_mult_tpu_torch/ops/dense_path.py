@@ -16,6 +16,7 @@ import torch
 
 from ..config import Precision, get_config
 from ..types import CSRMatrix
+from ..utils.profiling import span
 from .convert import csr_to_dense, dense_to_csr
 from .kernels.triu_matmul import matmul_triu
 from .matmul import policy_matmul, resolve_precision
@@ -31,11 +32,13 @@ def dense_path_fits(*shapes) -> bool:
 def product_dense(a: CSRMatrix, b: CSRMatrix, precision: str) -> torch.Tensor:
     """Dense A@B under a precision policy: densify (K3) in the dtype the
     policy multiplies in (f32 for FAST on the card), then :func:`policy_matmul`."""
-    out_dtype = torch.promote_types(a.dtype, b.dtype)
+    # Operands of one dtype (the usual case) need no dispatched promotion.
+    out_dtype = a.dtype if a.dtype == b.dtype else torch.promote_types(a.dtype, b.dtype)
     fast_on_card = precision == Precision.FAST and a.device.type == "cuda"
     dense_dtype = torch.float32 if fast_on_card else out_dtype
-    return policy_matmul(csr_to_dense(a, dense_dtype), csr_to_dense(b, dense_dtype),
-                         precision, out_dtype)
+    ad, bd = csr_to_dense(a, dense_dtype), csr_to_dense(b, dense_dtype)
+    with span("smm.gemm"):
+        return policy_matmul(ad, bd, precision, out_dtype)
 
 
 def _expected_terms(a: CSRMatrix, b: CSRMatrix) -> float:
@@ -84,9 +87,13 @@ def spgemm_dense_out(a: CSRMatrix, b: CSRMatrix, symmetric: bool = False,
             split3 = precision == Precision.FAST and _split3_within_oracle(a, b)
             ad = csr_to_dense(a, torch.float32)
             bd = csr_to_dense(b, torch.float32)
-            out_dtype = torch.promote_types(a.dtype, b.dtype)
-            return torch.triu(matmul_triu(ad, bd, split3=split3)).to(out_dtype)
-        return torch.triu(product_dense(a, b, prec))
+            with span("smm.gemm"):
+                c = matmul_triu(ad, bd, split3=split3)
+            with span("smm.finish"):
+                return torch.triu(c).to(torch.promote_types(a.dtype, b.dtype))
+        c = product_dense(a, b, prec)
+        with span("smm.finish"):
+            return torch.triu(c)
     return product_dense(a, b, prec)
 
 

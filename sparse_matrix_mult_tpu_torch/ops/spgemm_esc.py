@@ -40,6 +40,7 @@ import torch
 
 from ..types import CSRMatrix, INDEX_DTYPE, row_ids_from_indptr
 from ..utils.native import expansion_size
+from ..utils.profiling import span
 
 __all__ = [
     "spgemm_esc",
@@ -78,7 +79,9 @@ def _expand(a: CSRMatrix, b_start, b_len, b: CSRMatrix, *, symmetric: bool, row_
     counts = [lens.sum()]
     if window:
         counts.append((lens - window).clamp_min(0).sum())
-    nnz, total, *tail = torch.stack([a.nnz.long(), *counts]).tolist()  # the one host sync
+    counts = torch.stack([a.nnz.long(), *counts])
+    with span("smm.sync.esc_counts"):  # the one host sync
+        nnz, total, *tail = counts.tolist()
     if total > expand_capacity:
         raise ValueError(
             f"expand_capacity {expand_capacity} < {total} partial products: size it with "
@@ -180,19 +183,26 @@ def _sort_compress(key, v, n_rows: int, n_cols: int, out_capacity: int,
     """:func:`esc_sort_compress` of int64 keys already dead at ``n_rows *
     n_cols`` with value 0 (what :func:`_expand` gives)."""
     if key.shape[0] == 0:
-        return _empty(n_rows, out_capacity, v.dtype, v.device)
-    key_sorted, perm = torch.sort(key, stable=True)
-    v_sorted = v[perm]
-    if live_capacity is not None and live_capacity < key.shape[0]:
-        key_sorted, v_sorted = key_sorted[:live_capacity], v_sorted[:live_capacity]
-    return _compress(key_sorted, v_sorted, n_rows, n_cols, out_capacity)
+        with span("smm.esc.compress"):
+            return _empty(n_rows, out_capacity, v.dtype, v.device)
+    with span("smm.esc.sort"):
+        key_sorted, perm = torch.sort(key, stable=True)
+        v_sorted = v[perm]
+        if live_capacity is not None and live_capacity < key.shape[0]:
+            key_sorted, v_sorted = key_sorted[:live_capacity], v_sorted[:live_capacity]
+    with span("smm.esc.compress"):
+        return _compress(key_sorted, v_sorted, n_rows, n_cols, out_capacity)
 
 
-def _esc(a: CSRMatrix, b: CSRMatrix, b_start, b_len, *, out_capacity: int, symmetric: bool,
+def _esc(a: CSRMatrix, b: CSRMatrix, b_table, *, out_capacity: int, symmetric: bool,
          row_offset, **expand_kw) -> CSRMatrix:
+    """Both engines: B's row bounds (from ``b_table`` when given) and the
+    expansion, then the sort and the compression."""
     rows, cols = a.shape[0], b.shape[1]
-    key, v = _expand(a, b_start, b_len, b, symmetric=symmetric, row_offset=row_offset,
-                     **expand_kw)
+    with span("smm.esc.expand"):
+        b_start, b_len = _b_rows(b) if b_table is None else (b_table[:, 0], b_table[:, 1])
+        key, v = _expand(a, b_start, b_len, b, symmetric=symmetric, row_offset=row_offset,
+                         **expand_kw)
     indptr, indices, values = _sort_compress(key, v, rows, cols, out_capacity)
     return CSRMatrix(indptr=indptr, indices=indices, values=values, shape=(rows, cols))
 
@@ -215,8 +225,7 @@ def spgemm_esc(
     product (``ValueError`` otherwise: no partial is dropped); entries past
     ``out_capacity`` are dropped.  One host sync.
     """
-    b_start, b_len = _b_rows(b)
-    return _esc(a, b, b_start, b_len, out_capacity=out_capacity, symmetric=symmetric,
+    return _esc(a, b, None, out_capacity=out_capacity, symmetric=symmetric,
                 row_offset=row_offset, expand_capacity=int(expand_capacity))
 
 
@@ -263,15 +272,11 @@ def spgemm_esc_windowed(
     if W <= 0:
         raise ValueError(f"window must be positive, got {window}")
     kdim = b.shape[0]
-    if b_table is not None:
-        if tuple(b_table.shape) != (kdim, 2):
-            raise ValueError(
-                f"b_table shape {tuple(b_table.shape)} != ({kdim}, 2); build it with "
-                f"precompute_window_table(b, window={W})")
-        b_start, b_len = b_table[:, 0], b_table[:, 1]
-    else:
-        b_start, b_len = _b_rows(b)
-    return _esc(a, b, b_start, b_len, out_capacity=out_capacity, symmetric=symmetric,
+    if b_table is not None and tuple(b_table.shape) != (kdim, 2):
+        raise ValueError(
+            f"b_table shape {tuple(b_table.shape)} != ({kdim}, 2); build it with "
+            f"precompute_window_table(b, window={W})")
+    return _esc(a, b, b_table, out_capacity=out_capacity, symmetric=symmetric,
                 row_offset=row_offset, expand_capacity=int(expand_capacity), window=W,
                 tail_capacity=int(tail_capacity))
 

@@ -25,6 +25,7 @@ import torch
 
 from ..config import Precision
 from ..types import CSRMatrix
+from ..utils.profiling import span
 from ._precision import full_fp32
 from .convert import csr_to_dense
 from .dense_path import _expected_terms, _triu_kernel_ok
@@ -62,33 +63,49 @@ def triple_product_dense(h: CSRMatrix, q: CSRMatrix, compute_full_matrix: int = 
     ``compute_full_matrix=1`` -> upper triangle mirrored into the lower.
     """
     prec = resolve_precision(precision, _expected_terms(h, q))
-    out_dtype = torch.promote_types(h.dtype, q.dtype)
+    # Operands of one dtype (the usual case) need no dispatched promotion.
+    out_dtype = h.dtype if h.dtype == q.dtype else torch.promote_types(h.dtype, q.dtype)
     m = h.shape[0]
 
     if _triu_kernel_ok(h, m, m, prec):
         hd = csr_to_dense(h, torch.float32)
         qd = csr_to_dense(q, torch.float32)
-        c = _fast_dense(hd, qd, split3=precision == Precision.FAST).to(out_dtype)
+        with span("smm.gemm"):
+            c = _fast_dense(hd, qd, split3=precision == Precision.FAST)
     elif prec == Precision.STRICT or h.device.type != "cuda":
         hd = csr_to_dense(h, out_dtype)
-        with full_fp32():
-            c = torch.matmul(torch.matmul(hd, csr_to_dense(q, out_dtype)), hd.T)
+        qd = csr_to_dense(q, out_dtype)
+        with span("smm.gemm"), full_fp32():
+            t = torch.matmul(hd, qd)
+            del qd
+            c = torch.matmul(t, hd.T)
+            del t
     elif prec == Precision.FAST:
-        c = _chain(csr_to_dense(h, torch.float32), csr_to_dense(q, torch.float32)).to(out_dtype)
+        hd = csr_to_dense(h, torch.float32)
+        qd = csr_to_dense(q, torch.float32)
+        with span("smm.gemm"):
+            c = _chain(hd, qd)
+            del hd, qd
     elif prec == Precision.SPLIT:
-        # Split both contractions; the lo*lo terms are below f64 noise here.
-        hhi, hlo = split_operand(csr_to_dense(h, out_dtype))
-        qhi, qlo = split_operand(csr_to_dense(q, out_dtype))
-        t = (matmul_full(hhi, qhi).double() + matmul_full(hhi, qlo).double()
-             + matmul_full(hlo, qhi).double())
-        thi, tlo = split_operand(t)
-        c = (matmul_full(thi, hhi, transpose_b=True).double()
-             + matmul_full(thi, hlo, transpose_b=True).double()
-             + matmul_full(tlo, hhi, transpose_b=True).double()).to(out_dtype)
+        hd = csr_to_dense(h, out_dtype)
+        qd = csr_to_dense(q, out_dtype)
+        with span("smm.gemm"):
+            # Split both contractions; the lo*lo terms are below f64 noise here.
+            hhi, hlo = split_operand(hd)
+            qhi, qlo = split_operand(qd)
+            del hd, qd
+            t = (matmul_full(hhi, qhi).double() + matmul_full(hhi, qlo).double()
+                 + matmul_full(hlo, qhi).double())
+            thi, tlo = split_operand(t)
+            c = (matmul_full(thi, hhi, transpose_b=True).double()
+                 + matmul_full(thi, hlo, transpose_b=True).double()
+                 + matmul_full(tlo, hhi, transpose_b=True).double())
     else:
         raise ValueError(f"unknown precision policy: {prec!r}")
 
-    upper = torch.triu(c)
-    if compute_full_matrix:
-        return upper + torch.triu(c, 1).T
-    return upper
+    with span("smm.finish"):
+        c = c.to(out_dtype)
+        upper = torch.triu(c)
+        if compute_full_matrix:
+            return upper + torch.triu(c, 1).T
+        return upper

@@ -5,6 +5,13 @@ Counterpart of :mod:`sparse_matrix_mult_tpu.utils.profiling`: the same
 ``block_until_ready``, :func:`time_execution` synchronizes every CUDA device
 that holds a tensor of the result; :func:`device_trace` records a
 ``torch.profiler`` trace where JAX records a ``jax.profiler`` one.
+
+:func:`span` names a stretch of the port's own work in such a trace.  The
+port opens one at each layer boundary of its device-resident path; their
+names are fixed (``smm.multiply``, ``smm.triple_product``, ``smm.densify``,
+``smm.gemm``, ``smm.finish``, ``smm.extract``, ``smm.esc.expand``,
+``smm.esc.sort``, ``smm.esc.compress``, ``smm.route.<stage>`` on the ESC
+scipy routes, and ``smm.sync.<site>`` around each host sync).
 """
 
 from __future__ import annotations
@@ -16,7 +23,9 @@ from typing import Callable
 
 import torch
 
-__all__ = ["time_execution", "Timer", "device_trace"]
+__all__ = ["time_execution", "Timer", "device_trace", "span"]
+
+_OFF = contextlib.nullcontext()
 
 
 def _cuda_devices(result, found: set) -> set:
@@ -88,3 +97,13 @@ def device_trace(log_dir: str):
     with torch.profiler.profile(activities=activities,
                                 on_trace_ready=torch.profiler.tensorboard_trace_handler(log_dir)):
         yield
+
+
+def span(name: str):
+    """A ``torch.profiler`` range named ``name`` while a profiler records;
+    otherwise one shared no-op context.  The profiler's own state is the
+    switch: entering a ``record_function`` costs ~10 us even when no
+    profiler runs, the check ~0.1 us."""
+    if torch._C._autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _OFF
